@@ -1,0 +1,249 @@
+"""End-to-end TTS interface: text -> articulatory features -> mel -> wave.
+
+Counterpart of ``toucan_tpu/infer/interface.py`` (reference
+``InferenceInterfaces/ToucanTTSInterface.py``): language/accent setters,
+the utterance embedding, the prosody-control knobs, per-phone prosody
+overrides, batched synthesis and ``read_to_file``.  Inputs are padded to
+the same buckets as the JAX interface (32 phones, 16 frames per phone,
+64 vocoder frames), so both compute on the same shapes.  Text to wave runs
+on the device without a host round trip; frames past each mel length are
+zeroed before vocoding.
+"""
+
+from __future__ import annotations
+
+import itertools
+import math
+import wave as wave_mod
+from typing import Optional
+
+import numpy as np
+import torch
+
+from toucan_tpu_torch.frontend.text import TextFrontend, language_id
+from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
+from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
+from toucan_tpu_torch.utils.device import resolve_device
+
+PHONE_BUCKET = 32
+FRAMES_PER_PHONE = 16       # static upper bound for the upsampled length
+SAMPLES_PER_FRAME = 384     # 24 kHz out / 16 kHz-rate mel frames (hop 256)
+SENTENCE_JOIN_SILENCE = 10600
+
+
+def _round_up(n, m):
+    return max(m, int(math.ceil(n / m)) * m)
+
+
+class ToucanTTSInterface:
+    def __init__(self, tts_state_dict, vocoder_state_dict,
+                 config: Optional[ToucanTTSConfig] = None,
+                 vocoder: Optional[HiFiGANGenerator] = None, default_embedding=None,
+                 language: str = "en", use_g2p: bool = True, seed: int = 0, device=None):
+        """``vocoder`` is a HiFiGANGenerator of the checkpoint's widths
+        (default ``HiFiGANGenerator()``); the state dicts are loaded into the
+        models.  ``device`` defaults to the card; pass "cpu" for the CPU."""
+        self.device = resolve_device(device)
+        self.config = config or ToucanTTSConfig()
+        self.model = ToucanTTS(self.config)
+        self.model.load_state_dict(tts_state_dict)
+        self.model.to(self.device).eval()
+        self.vocoder = vocoder if vocoder is not None else HiFiGANGenerator()
+        self.vocoder.load_state_dict(vocoder_state_dict)
+        self.vocoder.to(self.device).eval()
+        self.use_g2p = use_g2p
+        self._frontends = {}
+        self.set_language(language)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        if default_embedding is None and self.config.utt_embed_dim is not None:
+            default_embedding = np.zeros(self.config.utt_embed_dim, np.float32)
+        self.default_utterance_embedding = (
+            None if default_embedding is None
+            else np.asarray(default_embedding, np.float32).reshape(-1))
+
+    # ------------------------------------------------------------- setters
+
+    def set_language(self, lang: str):
+        self.set_phonemizer_language(lang)
+        self.set_accent_language(lang)
+
+    def set_phonemizer_language(self, lang: str):
+        self.text2phone = self._frontend(lang)
+
+    def set_accent_language(self, lang: str):
+        self.lang_id = language_id(lang) if self.config.lang_embs is not None else None
+
+    def set_utterance_embedding(self, embedding):
+        self.default_utterance_embedding = np.asarray(embedding, np.float32).reshape(-1)
+
+    def _frontend(self, lang: str) -> TextFrontend:
+        if lang not in self._frontends:
+            self._frontends[lang] = TextFrontend(language=lang, use_g2p=self.use_g2p)
+        return self._frontends[lang]
+
+    # ----------------------------------------------------------- synthesis
+
+    def _tensor(self, x, dtype=torch.float32):
+        return None if x is None else torch.as_tensor(np.asarray(x), dtype=dtype,
+                                                      device=self.device)
+
+    def _noise(self, b: int, max_frames: int) -> torch.Tensor:
+        return torch.randn((b, max_frames, self.config.mel_channels),
+                           generator=self.generator, device=self.device) * 0.8
+
+    @torch.inference_mode()
+    def _e2e(self, text, text_lengths, max_frames: int, utt, lang, noise, knobs=(1.0,) * 4,
+             durations=None, pitch=None, energy=None):
+        """Text -> mel -> wave on the device.  Tensors on ``self.device``;
+        knobs are (duration, pitch variance, energy variance, pause) scales.
+        Returns (wave (B, 384*max_frames), after, durations, pitch, energy,
+        mel_lengths)."""
+        _, after, dur, pit, ene, lens = self.model.infer(
+            text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
+            gold_durations=durations, gold_pitch=pitch, gold_energy=energy,
+            duration_scaling_factor=knobs[0], pitch_variance_scale=knobs[1],
+            energy_variance_scale=knobs[2], pause_duration_scaling_factor=knobs[3],
+            glow_noise=noise)
+        mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
+        mel = torch.where(mask, after, torch.zeros((), device=after.device))
+        wave = self.vocoder(mel)[..., 0]
+        return wave, after, dur, pit, ene, lens
+
+    @torch.inference_mode()
+    def _vocode(self, mel: np.ndarray) -> np.ndarray:
+        """(L, 80) -> (L*384,) 24 kHz wave, padded to a 64-frame bucket."""
+        frames = _round_up(len(mel), 64)
+        mel_p = np.zeros((1, frames, mel.shape[1]), np.float32)
+        mel_p[0, :len(mel)] = mel
+        wave = self.vocoder(self._tensor(mel_p))
+        return wave[0, :len(mel) * SAMPLES_PER_FRAME, 0].cpu().numpy()
+
+    def _utt(self, b: int):
+        if self.default_utterance_embedding is None:
+            return None
+        return self._tensor(np.tile(self.default_utterance_embedding[None], (b, 1)))
+
+    def _synthesize(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
+                    energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
+                    durations=None, pitch=None, energy=None, input_is_phones=False,
+                    glow_noise=None):
+        """One sentence through ``_e2e``; returns its outputs and phone count."""
+        phones = self.text2phone.string_to_features(text, input_phonemes=input_is_phones)
+        n = len(phones)
+        n_pad = _round_up(n, PHONE_BUCKET)
+        text_arr = np.zeros((1, n_pad, phones.shape[1]), np.float32)
+        text_arr[0, :n] = phones
+        if durations is not None:
+            max_frames = _round_up(int(np.sum(durations)
+                                       * max(duration_scaling_factor, 1.0)) + 2, 64)
+        else:
+            max_frames = n_pad * FRAMES_PER_PHONE
+
+        def pad_override(x, dtype=torch.float32):
+            if x is None:
+                return None
+            x = np.asarray(x, np.float32)
+            out = np.zeros((1, n_pad) + x.shape[1:], np.float32)
+            out[0, :n] = x
+            return self._tensor(out, dtype)
+
+        if glow_noise is None:
+            noise = self._noise(1, max_frames)
+        else:  # injected z (deterministic synthesis, parity tests)
+            glow_noise = np.asarray(glow_noise, np.float32)
+            z = np.zeros((1, max_frames, self.config.mel_channels), np.float32)
+            z[0, :len(glow_noise)] = glow_noise[:max_frames]
+            noise = self._tensor(z)
+        lang = (None if self.lang_id is None
+                else torch.tensor([[self.lang_id]], device=self.device))
+        knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
+                 pause_duration_scaling_factor)
+        outs = self._e2e(self._tensor(text_arr), torch.tensor([n], device=self.device),
+                         max_frames, self._utt(1), lang, noise, knobs,
+                         durations=pad_override(durations, torch.int32),
+                         pitch=pad_override(pitch), energy=pad_override(energy))
+        return outs, n
+
+    def __call__(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
+                 energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
+                 durations=None, pitch=None, energy=None, input_is_phones=False,
+                 return_duration_pitch_energy=False, glow_noise=None):
+        (wave, _, dur, pit, ene, lens), n = self._synthesize(
+            text, duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
+            pause_duration_scaling_factor, durations, pitch, energy, input_is_phones,
+            glow_noise)
+        wave = wave[0, :int(lens[0]) * SAMPLES_PER_FRAME].cpu().numpy()
+        if return_duration_pitch_energy:
+            return (wave, dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy(),
+                    ene[0, :n, 0].cpu().numpy())
+        return wave
+
+    def synthesize_batch(self, texts, input_is_phones=False, languages=None,
+                         utterance_embeddings=None, duration_scaling_factor=1.0,
+                         pitch_variance_scale=1.0, energy_variance_scale=1.0,
+                         pause_duration_scaling_factor=1.0):
+        """One device run over a batch of texts; returns a list of 24 kHz
+        waves.  ``languages``: optional per-text language codes;
+        ``utterance_embeddings``: optional (B, E).  Conv masking makes each
+        row equal its exact-length single run."""
+        b = len(texts)
+        langs = languages if languages is not None else [None] * b
+        frontends = [self.text2phone if lg is None else self._frontend(lg) for lg in langs]
+        phones = [fe.string_to_features(tx, input_phonemes=input_is_phones)
+                  for fe, tx in zip(frontends, texts)]
+        lengths = np.asarray([len(p) for p in phones], np.int64)
+        n_pad = _round_up(int(lengths.max()), PHONE_BUCKET)
+        text_arr = np.zeros((b, n_pad, phones[0].shape[1]), np.float32)
+        for i, p in enumerate(phones):
+            text_arr[i, :len(p)] = p
+        max_frames = n_pad * FRAMES_PER_PHONE
+        if utterance_embeddings is None:
+            utt = self._utt(b)
+        else:
+            utt = self._tensor(np.asarray(utterance_embeddings, np.float32).reshape(b, -1))
+        lang = None
+        if self.config.lang_embs is not None:
+            ids = [self.lang_id if lg is None else language_id(lg) for lg in langs]
+            lang = torch.tensor([[i] for i in ids], device=self.device)
+        knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
+                 pause_duration_scaling_factor)
+        waves, _, _, _, _, lens = self._e2e(
+            self._tensor(text_arr), self._tensor(lengths, torch.int64), max_frames, utt, lang,
+            self._noise(b, max_frames), knobs)
+        waves, lens = waves.cpu().numpy(), lens.cpu().numpy()
+        return [waves[i, :int(lens[i]) * SAMPLES_PER_FRAME] for i in range(b)]
+
+    # ----------------------------------------------------------- file I/O
+
+    def read_to_file(self, text_list, file_location, duration_scaling_factor=1.0,
+                     pitch_variance_scale=1.0, energy_variance_scale=1.0, silent=True,
+                     dur_list=None, pitch_list=None, energy_list=None, input_is_phones=False):
+        """Synthesize each text, join them with silence, write a 24 kHz PCM16
+        wav.  Returns the samples."""
+        silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
+        pieces = [silence]
+        for text, durations, pitch, energy in itertools.zip_longest(
+                text_list, dur_list or [], pitch_list or [], energy_list or []):
+            if not text or not text.strip():
+                continue
+            if not silent:
+                print(f"Now synthesizing: {text}")
+            pieces += [self(text, duration_scaling_factor=duration_scaling_factor,
+                            pitch_variance_scale=pitch_variance_scale,
+                            energy_variance_scale=energy_variance_scale,
+                            durations=durations, pitch=pitch, energy=energy,
+                            input_is_phones=input_is_phones), silence]
+        wav = np.concatenate(pieces)
+        write_wav(file_location, wav, 24000)
+        return wav
+
+
+def write_wav(path, data, sr):
+    """PCM16 mono WAV with the standard library."""
+    if data.dtype != np.int16:
+        data = (np.clip(data, -1, 1) * 32767).astype(np.int16)
+    with wave_mod.open(str(path), "wb") as f:
+        f.setnchannels(1)
+        f.setsampwidth(2)
+        f.setframerate(sr)
+        f.writeframes(data.tobytes())

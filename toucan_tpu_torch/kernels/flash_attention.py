@@ -1,0 +1,88 @@
+"""Rel-pos flash attention: the CUDA kernel's wrapper and its plain version.
+
+Counterpart of ``toucan_tpu/kernels/pallas_attention.py``.  The kernel is
+``csrc/flash_rel_attention.cu``.  ``flash_rel_attention`` launches it for
+CUDA tensors and runs ``flash_rel_attention_plain`` for CPU tensors; any
+other device raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from toucan_tpu_torch.kernels import build
+
+SUPPORTED_HEAD_DIMS = (16, 32, 48, 64)
+
+
+def flash_rel_attention_plain(q_u, q_v, k, v, p, lengths):
+    """softmax(((q_u.k) + rel_shift(q_v.p)) / sqrt(d)) . v with a key mask.
+
+    q_u, q_v, k, v (B, H, T, d); p (H, 2T-1, d) with row T-1 = offset 0;
+    lengths (B,) valid key counts.  Keys >= lengths[b] are masked; rows with
+    no valid key give 0; padded query rows attend to the valid keys.
+    """
+    b, h, t, d = q_u.shape
+    ar = torch.arange(t, device=q_u.device)
+    ac = q_u @ k.transpose(-1, -2)                               # (B,H,T,T)
+    bd = q_v @ p.transpose(-1, -2)[None]                         # (B,H,T,2T-1)
+    rel = (t - 1 - ar[:, None] + ar[None, :]).expand(b, h, t, t)
+    scores = (ac + bd.gather(-1, rel)) * (1.0 / math.sqrt(d))
+    key_ok = (ar[None, :] < lengths[:, None].to(ar.dtype))[:, None, None, :]
+    scores = scores.masked_fill(~key_ok, torch.finfo(scores.dtype).min)
+    attn = torch.softmax(scores, dim=-1).masked_fill(~key_ok, 0.0)
+    return attn @ v
+
+
+def _check(q_u, q_v, k, v, p, lengths):
+    b, h, t, d = q_u.shape
+    for name, x in (("q_v", q_v), ("k", k), ("v", v)):
+        if x.shape != q_u.shape:
+            raise ValueError(f"{name} has shape {tuple(x.shape)}, expected {tuple(q_u.shape)}")
+    if p.shape != (h, 2 * t - 1, d):
+        raise ValueError(f"p has shape {tuple(p.shape)}, expected {(h, 2 * t - 1, d)}")
+    if lengths.shape != (b,) or lengths.dtype != torch.int32:
+        raise ValueError("lengths must be an int32 tensor of shape (B,)")
+    for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
+        if x.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    for x in (q_v, k, v, p, lengths):
+        if x.device != q_u.device:
+            raise ValueError("all inputs must be on one device")
+    if d not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {d} not built; supported: {SUPPORTED_HEAD_DIMS}")
+    if t < 1 or b > 65535 or h > 65535:
+        raise ValueError(f"unsupported shape B={b} H={h} T={t}")
+
+
+def flash_rel_attention(q_u, q_v, k, v, p, lengths):
+    """Launch the CUDA kernel on CUDA tensors; plain version on CPU tensors.
+
+    Same arguments as ``flash_rel_attention_plain``; returns (B, H, T, d) f32.
+    """
+    if q_u.device.type == "cpu":
+        return flash_rel_attention_plain(q_u, q_v, k, v, p, lengths)
+    if q_u.device.type != "cuda":
+        raise ValueError(f"flash_rel_attention takes cuda or cpu tensors, got {q_u.device}")
+    _check(q_u, q_v, k, v, p, lengths)
+    lib = build.load("flash_rel_attention")
+    fn = lib.flash_rel_attention_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    b, h, t, d = q_u.shape
+    out = torch.empty_like(q_u)
+    with torch.cuda.device(q_u.device):
+        stream = torch.cuda.current_stream(q_u.device).cuda_stream
+        err = fn(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
+                 p.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, t, d, stream)
+    build.check(lib, err, "flash_rel_attention")
+    flash_rel_attention.launches += 1
+    return out
+
+
+flash_rel_attention.launches = 0

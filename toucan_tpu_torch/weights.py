@@ -1,0 +1,173 @@
+"""State dicts for the port from the JAX package's variables.
+
+The JAX package keeps its weights as nested dicts (``params``,
+``batch_stats``, ``buffers``); these functions take such dicts of numpy
+arrays and return the port's ``state_dict``, whose keys are the reference
+IMS-Toucan ones.  They invert ``toucan_tpu/compat/torch_toucan.py::
+convert_toucan_tts`` and ``compat/torch_vocoder.py::convert_hifigan``:
+only layouts change (flax (k, in, out) conv kernels and (in, out) dense
+kernels become torch (out, in, k) and (out, in)), never values.  No JAX
+is needed to call them.
+"""
+
+from __future__ import annotations
+
+import re
+
+import numpy as np
+import torch
+
+
+def _t(a) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float32))
+
+
+class _Writer:
+    def __init__(self):
+        self.sd = {}
+
+    def linear(self, key, p):
+        self.sd[f"{key}.weight"] = _t(np.asarray(p["kernel"]).T)
+        if "bias" in p:
+            self.sd[f"{key}.bias"] = _t(p["bias"])
+
+    def conv(self, key, p):
+        self.sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (2, 1, 0)))
+        if "bias" in p:
+            self.sd[f"{key}.bias"] = _t(p["bias"])
+
+    def norm(self, key, p):
+        self.sd[f"{key}.weight"] = _t(p["scale"])
+        self.sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def _count(tree, prefix) -> int:
+    rx = re.compile(rf"{prefix}(\d+)$")
+    return sum(1 for k in tree if rx.match(k))
+
+
+def _conformer(w: _Writer, key, p, stats):
+    if "embed" in p:
+        w.linear(f"{key}.embed.0", p["embed"]["fc1"])
+        w.linear(f"{key}.embed.2", p["embed"]["fc2"])
+    if "language_embedding" in p:
+        w.sd[f"{key}.language_embedding.weight"] = _t(p["language_embedding"]["embedding"])
+    for i in range(_count(p, "block_")):
+        bp, bs, bk = p[f"block_{i}"], stats[f"block_{i}"], f"{key}.encoders.{i}"
+        for name in ("norm_ff", "norm_mha", "norm_ff_macaron", "norm_conv", "norm_final"):
+            w.norm(f"{bk}.{name}", bp[name])
+        for ff in ("feed_forward", "feed_forward_macaron"):
+            w.conv(f"{bk}.{ff}.w_1", bp[ff]["w_1"])
+            w.conv(f"{bk}.{ff}.w_2", bp[ff]["w_2"])
+        att = bp["self_attn"]
+        for name in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            w.linear(f"{bk}.self_attn.{name}", att[name])
+        w.sd[f"{bk}.self_attn.pos_bias_u"] = _t(att["pos_bias_u"])
+        w.sd[f"{bk}.self_attn.pos_bias_v"] = _t(att["pos_bias_v"])
+        cm = bp["conv_module"]
+        for name in ("pointwise_conv1", "depthwise_conv", "pointwise_conv2"):
+            w.conv(f"{bk}.conv_module.{name}", cm[name])
+        w.norm(f"{bk}.conv_module.norm", cm["norm"])
+        bn = bs["conv_module"]["norm"]
+        w.sd[f"{bk}.conv_module.norm.running_mean"] = _t(bn["mean"])
+        w.sd[f"{bk}.conv_module.norm.running_var"] = _t(bn["var"])
+        w.sd[f"{bk}.conv_module.norm.num_batches_tracked"] = torch.tensor(0)
+    if "output_norm" in p:
+        w.norm(f"{key}.output_norm", p["output_norm"])
+    if "hs_emb_projection" in p:
+        w.linear(f"{key}.hs_emb_projection", p["hs_emb_projection"])
+
+
+def _predictor(w: _Writer, key, p):
+    stack = p["stack"]
+    for i in range(_count(stack, "conv_")):
+        w.conv(f"{key}.conv.{i}.0", stack[f"conv_{i}"])
+        if f"cln_{i}" in stack:
+            cln = stack[f"cln_{i}"]
+            for ours, theirs in (("scale", "W_scale"), ("bias", "W_bias")):
+                for j, idx in enumerate((0, 2, 4)):
+                    w.linear(f"{key}.norms.{i}.{theirs}.{idx}", cln[f"{ours}_{j}"])
+        else:
+            w.norm(f"{key}.norms.{i}", stack[f"ln_{i}"])
+    w.linear(f"{key}.linear", stack["linear"])
+
+
+def toucan_tts_from_jax(variables, share_wn_layers: int = 4) -> dict:
+    """JAX ToucanTTS variables -> the port's ToucanTTS state dict.
+
+    ``share_wn_layers`` is the Glow's block count per shared WaveNet core
+    (``Glow.share_wn_layers``); the shared layers are listed under every
+    block that uses them.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    buffers = variables.get("buffers", {})
+    w = _Writer()
+    _conformer(w, "encoder", params["encoder"], stats["encoder"])
+    _conformer(w, "decoder", params["decoder"], stats["decoder"])
+    for name in ("duration_predictor", "pitch_predictor", "energy_predictor"):
+        _predictor(w, name, params[name])
+    w.conv("pitch_embed.0", params["pitch_embed"])
+    w.conv("energy_embed.0", params["energy_embed"])
+    w.linear("feat_out", params["feat_out"])
+    post = params["conv_postnet"]
+    for i in range(_count(post, "conv_")):
+        w.conv(f"conv_postnet.postnet.{i}.0", post[f"conv_{i}"])
+        w.norm(f"conv_postnet.postnet.{i}.1", post[f"gn_{i}"])
+    if "post_flow" in params:
+        gp, gb = params["post_flow"], buffers["post_flow"]
+        w.conv("post_flow.g_proj", gp["g_proj"])
+        n_blocks = _count(gp, "actnorm_")
+        for b in range(n_blocks):
+            an = gp[f"actnorm_{b}"]
+            w.sd[f"post_flow.flows.{3 * b}.logs"] = _t(an["logs"]).reshape(1, -1, 1)
+            w.sd[f"post_flow.flows.{3 * b}.bias"] = _t(an["bias"]).reshape(1, -1, 1)
+            base = f"post_flow.flows.{3 * b + 1}"
+            for name in ("p", "sign_s"):
+                w.sd[f"{base}.{name}"] = _t(gb[f"invconv_{b}"][name])
+            for name in ("l", "log_s", "u"):
+                w.sd[f"{base}.{name}"] = _t(gp[f"invconv_{b}"][name])
+            base = f"post_flow.flows.{3 * b + 2}"
+            cp = gp[f"coupling_{b}"]
+            w.conv(f"{base}.start", cp["start"])
+            w.conv(f"{base}.end", cp["end"])
+            w.conv(f"{base}.wn.cond_layer", cp["cond_layer"])
+            core = gp[f"wn_core_{b // share_wn_layers}"]
+            for i in range(_count(core, "in_")):
+                w.conv(f"{base}.wn.in_layers.{i}", core[f"in_{i}"])
+                w.conv(f"{base}.wn.res_skip_layers.{i}", core[f"res_skip_{i}"])
+    return w.sd
+
+
+def hifigan_from_jax(variables) -> dict:
+    """JAX HiFiGANGenerator variables -> the port's HiFiGANGenerator state dict.
+
+    The Avocodo taps ``out_proj_x1``/``out_proj_x2`` exist in the JAX
+    variables only when the generator was initialised with
+    ``return_intermediates=True``; when absent they are set to zero (only
+    training reads them).
+    """
+    p = variables["params"]
+    w = _Writer()
+    w.conv("input_conv", p["input_conv"])
+    n_up = sum(1 for k in p if re.fullmatch(r"upsample_\d+_kernel", k))
+    n_stacks = sum(1 for k in p if k.startswith("block_0_"))
+    for i in range(n_up):
+        # JAX (k, out, in) -> torch ConvTranspose1d (in, out, k)
+        w.sd[f"upsamples.{i}.1.weight"] = _t(np.transpose(np.asarray(p[f"upsample_{i}_kernel"]),
+                                                          (2, 1, 0)))
+        w.sd[f"upsamples.{i}.1.bias"] = _t(p[f"upsample_{i}_bias"])
+        for j in range(n_stacks):
+            blk = p[f"block_{i}_{j}"]
+            for d in range(_count(blk, "conv1_")):
+                w.conv(f"blocks.{i * n_stacks + j}.convs1.{d}.1", blk[f"conv1_{d}"])
+                w.conv(f"blocks.{i * n_stacks + j}.convs2.{d}.1", blk[f"conv2_{d}"])
+    w.conv("output_conv.1", p["output_conv"])
+    for name, stage in (("out_proj_x1", 1), ("out_proj_x2", 2)):
+        if name in p:
+            w.conv(name, p[name])
+        else:
+            ch = np.asarray(p[f"upsample_{stage}_bias"]).shape[0]
+            w.sd[f"{name}.weight"] = torch.zeros(1, ch, 7)
+            w.sd[f"{name}.bias"] = torch.zeros(1)
+    return w.sd
