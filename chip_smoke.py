@@ -7,24 +7,42 @@ Run from the repository root with no arguments:
 
 Phases, each reported on its own lines:
 
-1. build: nvcc compiles every kernel of the main path for sm_90a, all at
-   once, and prints ptxas's registers / shared memory / spills;
+1. build: nvcc compiles every kernel of the port for sm_90a, one process
+   per source, all at once, and prints ptxas's registers / shared memory /
+   spills;
 2. k1: the rel-pos flash attention kernel against its plain PyTorch version
    at B=2, H=4, d=48, T in (128, 2048), with its time, the plain version's
    and that of ``scaled_dot_product_attention`` on a materialised bias;
 3. k2: the fused HiFiGAN stage kernel against its plain version at the four
    stage shapes of 512 mel frames;
-4. main: the full-width model (default ToucanTTSConfig, HiFiGAN 512
-   channels, seeded random weights) through ``ToucanTTSInterface``:
-   ``__call__`` on ~110 phones, ``__call__`` with explicit durations,
-   ``synthesize_batch`` of four sentences and ``read_to_file``; each run
-   must launch K1 12 times and K2 4 times per synthesis;
-5. ref: the same weights on the CPU (plain versions) against the card, on a
-   short input.
+4. k5: the alias-free SnakeBeta kernel against its plain version at
+   BigVGAN's four stage shapes of 512 mel frames (and T = 8 for the edges);
+5. k3: the quantized HiFiGAN stage kernel, int8 and bf16, against its plain
+   versions at the four stage shapes of 512 mel frames, with scales
+   calibrated on the same input, K2's time beside it;
+6. shapes: K1, K2, K3 (int8) and K5 against their plain versions at the
+   shapes the main path gives them: batch size, sequence lengths and stage
+   lengths of the ``__call__`` on 110 phones (2048 vocoder frames), of the
+   call with 8 frames per phone and of ``synthesize_batch`` (B = 4);
+7. main: the full-width model (default ToucanTTSConfig, seeded random
+   weights) through ``ToucanTTSInterface``, on three paths, each call with
+   its launches counted from 0:
+   - HiFiGAN 512 channels: ``__call__`` on ~110 phones, ``__call__`` with
+     explicit durations, ``synthesize_batch`` of four sentences and
+     ``read_to_file``; K1 12 and K2 4 launches per synthesis;
+   - BigVGAN 512 channels (``vocoder="bigvgan"``): ``__call__`` (first,
+     steady, profiled), explicit durations, ``synthesize_batch``; K1 12 and
+     K5 73 launches per synthesis, K2 none;
+   - int8 HiFiGAN: ``quantize_vocoder()`` (its calibration pass: K1 12,
+     K2 4), then ``__call__`` and ``synthesize_batch``; K1 12 and K3 4 per
+     synthesis, K2 none; the int8 wave against the exact one of the same
+     call and noise (SNR above 25 dB, max error within 6 % of the peak);
+8. ref: the same weights on the CPU (plain versions) against the card, on a
+   short input, for the three paths.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
-nonzero.  TF32 is off for matmuls and cuDNN so every path is f32.
+nonzero.  TF32 is off for matmuls and cuDNN so every f32 path is f32.
 """
 
 import json
@@ -38,24 +56,47 @@ import time
 import numpy as np
 import torch
 
-from toucan_tpu_torch.infer.interface import ToucanTTSInterface
+from toucan_tpu_torch.frontend.text import TextFrontend
+from toucan_tpu_torch.infer.interface import (FRAMES_PER_PHONE, PHONE_BUCKET,
+                                              ToucanTTSInterface, _round_up)
 from toucan_tpu_torch.kernels import build
+from toucan_tpu_torch.kernels.aliasfree import alias_free_snake, alias_free_snake_plain
 from toucan_tpu_torch.kernels.flash_attention import (flash_rel_attention,
                                                       flash_rel_attention_plain)
 from toucan_tpu_torch.kernels.resstack import hifigan_stage, hifigan_stage_plain
+from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_stage,
+                                            quantized_stage, quantized_stage_plain)
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
+from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 
 SEED = 0
 F32_PEAK = 67e12      # H100 SXM f32 CUDA-core FLOP/s (NVIDIA data sheet)
+PEAK = {"int8": 1979e12, "bf16": 989e12}  # H100 SXM dense tensor-core rates
 HBM_RATE = 3.35e12    # H100 SXM bytes/s
 TOL_K1 = 2e-5
 TOL_K2 = (2e-4, 2e-3)  # atol, rtol
+TOL_K5 = 2e-5
+# K3 against its plain version, as a share of max|out|: the integer sums are
+# exact on both sides, but the f32 dequant chains and the bf16 stream can
+# round a value across a requantization boundary in one and not the other
+TOL_K3 = {"int8": 1e-2, "bf16": 2e-2}
+# int8 wave against the exact one of the same call and noise, the bounds of
+# tests/test_pallas_stage.py: SNR above 25 dB, max error within 6 % of the peak
+INT8_SNR_DB = 25
+TOL_INT8_WAVE = 0.06
+# int8 wave, card against CPU on the same scales, as a share of its peak:
+# only upstream f32 order differs, which can flip a requantization here and
+# there, so the two differ by a small part of the int8 noise, and by far
+# more if K3 is wrong
+TOL_REF_INT8 = 1e-2
+K5_LAUNCHES = 73       # 4 stages x 3 AMP blocks x 6 activations + activation_post
 # the full-width path on the card against the CPU: f32 throughout, but the
 # sums run in other orders (cuDNN, the kernels' tiles) through 12 conformer
 # blocks and 18 glow blocks
 TOL_REF = 1e-3
 K2_FRAMES = 512
+STAGE_SCALES = (8, 48, 192, 384)  # vocoder samples per mel frame after each stage
 LONG_TEXT = ("The quick brown fox jumps over the lazy dog near the river bank, "
              "while seven children watch from the old bridge.")
 BATCH_TEXTS = ["Speech synthesis turns written text into spoken audio.",
@@ -82,14 +123,15 @@ def time_ms(fn, iters):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, nbytes):
-    t_ops, t_bytes = flops / F32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
+def bound(flops, nbytes, peak=F32_PEAK):
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_RATE * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def phase_build():
     t0 = time.perf_counter()
-    logs = build.build(["flash_rel_attention", "hifigan_stage"])
+    logs = build.build(["flash_rel_attention", "hifigan_stage", "alias_free_snake",
+                        "hifigan_stage_q"])
     for name, text in logs.items():
         for line in text.splitlines():
             if "ptxas info" in line or "spill" in line or "error" in line.lower():
@@ -97,18 +139,27 @@ def phase_build():
     log("build", f"nvcc built {sorted(logs)} for sm_90a in {time.perf_counter() - t0:.1f} s")
 
 
+def k1_inputs(gen, dev, b, h, d, t, lengths):
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    q_u, q_v, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev) for _ in range(4))
+    p = torch.randn(h, 2 * t - 1, d, generator=gen, device=dev)
+    return q_u, q_v, k, v, p, lens
+
+
+def k1_error(args):
+    got = flash_rel_attention(*args)
+    torch.cuda.synchronize()
+    want = flash_rel_attention_plain(*args)
+    return (got - want).abs().max().item(), want
+
+
 def phase_k1(dev, gen):
     b, h, d = 2, 4, 48
     worst, row = 0.0, None
     for t in (128, 2048):
-        lens = torch.tensor([t, int(0.7 * t)], dtype=torch.int32, device=dev)
-        q_u, q_v, k, v = (torch.randn(b, h, t, d, generator=gen, device=dev) for _ in range(4))
-        p = torch.randn(h, 2 * t - 1, d, generator=gen, device=dev)
-        args = (q_u, q_v, k, v, p, lens)
-        got = flash_rel_attention(*args)
-        torch.cuda.synchronize()
-        want = flash_rel_attention_plain(*args)
-        err = (got - want).abs().max().item()
+        args = k1_inputs(gen, dev, b, h, d, t, [t, int(0.7 * t)])
+        q_u, q_v, k, v, p, lens = args
+        err, want = k1_error(args)
         worst = max(worst, err)
         ms = time_ms(lambda: flash_rel_attention(*args), 20)
         plain_ms = time_ms(lambda: flash_rel_attention_plain(*args), 5)
@@ -135,20 +186,24 @@ def phase_k1(dev, gen):
     return dict(row, max_abs_err=worst)
 
 
+def k2_error(x, sw):
+    """(max abs err, max excess over the rtol share of |plain|)."""
+    got = hifigan_stage(x, sw)
+    torch.cuda.synchronize()
+    want = hifigan_stage_plain(x, sw)
+    diff = (got - want).abs()
+    return diff.max().item(), (diff - TOL_K2[1] * want.abs()).max().item()
+
+
 def phase_k2(dev, gen, vocoder):
     frames = K2_FRAMES
     totals = dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0)
-    worst = 0.0
-    for i, scale in enumerate((8, 48, 192, 384)):
+    worst, stage_ms = 0.0, []
+    for i, scale in enumerate(STAGE_SCALES):
         sw = vocoder.stage_weights(i)
         c, t = sw.channels, scale * frames
         x = torch.randn(1, t, c, generator=gen, device=dev)
-        got = hifigan_stage(x, sw)
-        torch.cuda.synchronize()
-        want = hifigan_stage_plain(x, sw)
-        diff = (got - want).abs()
-        err = diff.max().item()
-        excess = (diff - TOL_K2[1] * want.abs()).max().item()
+        err, excess = k2_error(x, sw)
         worst = max(worst, err)
         ms = time_ms(lambda: hifigan_stage(x, sw), 3)
         plain_ms = time_ms(lambda: hifigan_stage_plain(x, sw), 3)
@@ -164,65 +219,275 @@ def phase_k2(dev, gen, vocoder):
         totals["plain_ms"] += plain_ms
         totals["flops"] += flops
         totals["nbytes"] += nbytes
+        stage_ms.append(ms)
     bound_ms, bound_by = bound(totals["flops"], totals["nbytes"])
     log("k2", f"four stages of {frames} frames: kernel_ms={totals['ms']:.3f} "
               f"plain_ms={totals['plain_ms']:.3f} bound_ms={bound_ms:.3f}")
     return dict(ms=totals["ms"], plain_ms=totals["plain_ms"], bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=None, max_abs_err=worst), stage_ms
+
+
+def k5_inputs(gen, dev, b, t, c):
+    """x (B, T, C) as BigVGAN passes it (the view of a (B, C, T) conv
+    output), random alpha and beta (x0.3)."""
+    alpha = 0.3 * torch.randn(c, generator=gen, device=dev)
+    beta = 0.3 * torch.randn(c, generator=gen, device=dev)
+    return torch.randn(b, c, t, generator=gen, device=dev).transpose(1, 2), alpha, beta
+
+
+def k5_error(x, alpha, beta):
+    got = alias_free_snake(x, alpha, beta)
+    torch.cuda.synchronize()
+    return (got - alias_free_snake_plain(x, alpha, beta)).abs().max().item()
+
+
+def phase_k5(dev, gen):
+    """K5 at BigVGAN's stage shapes of 512 mel frames (B=1) and at T=8.
+    Totals: one activation per stage shape."""
+    totals = dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0)
+    worst = 0.0
+    for t, c in ((4096, 256), (24576, 128), (98304, 64), (196608, 32), (8, 256)):
+        x, alpha, beta = k5_inputs(gen, dev, 1, t, c)
+        err = k5_error(x, alpha, beta)
+        worst = max(worst, err)
+        ms = time_ms(lambda: alias_free_snake(x, alpha, beta), 20)
+        plain_ms = time_ms(lambda: alias_free_snake_plain(x, alpha, beta), 5)
+        flops, nbytes = 56 * t * c, 4 * (2 * t * c + 2 * c)
+        bound_ms, bound_by = bound(flops, nbytes)
+        log("k5", f"B=1 T={t} C={c} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                  f"GB/s={nbytes / ms / 1e6:.1f}")
+        if not err <= TOL_K5:
+            raise AssertionError(f"K5 disagrees with its plain version at T={t} C={c}")
+        if t > 8:
+            totals["ms"] += ms
+            totals["plain_ms"] += plain_ms
+            totals["flops"] += flops
+            totals["nbytes"] += nbytes
+    bound_ms, bound_by = bound(totals["flops"], totals["nbytes"])
+    log("k5", f"one activation at each of the four stage shapes: kernel_ms={totals['ms']:.4f} "
+              f"plain_ms={totals['plain_ms']:.4f} bound_ms={bound_ms:.4f}")
+    return dict(ms=totals["ms"], plain_ms=totals["plain_ms"], bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=None, max_abs_err=worst)
 
 
-def phase_main(iface, launches):
-    """Each run: counts to 0, drive, synchronize, read the counts."""
-    def run(name, fn, n_synth, waves_of=lambda out: [out], frame=384):
-        flash_rel_attention.launches = hifigan_stage.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        sec = time.perf_counter() - t0
-        k1, k2 = flash_rel_attention.launches, hifigan_stage.launches
-        launches[0] += k1
-        launches[1] += k2
-        waves = waves_of(out)
-        audio = sum(len(w) for w in waves) / 24000
-        log("main", f"{name}: latency_s={sec:.4f} audio_s={audio:.3f} "
-                    f"audio_s_per_s={audio / sec:.3f} k1_launches={k1} k2_launches={k2}")
-        if (k1, k2) != (12 * n_synth, 4 * n_synth):
-            raise AssertionError(f"{name}: expected K1 {12 * n_synth}x and K2 {4 * n_synth}x, "
-                                 f"got {k1} and {k2}")
-        for w in waves:
-            if not (len(w) > 0 and len(w) % frame == 0 and np.isfinite(w).all()):
-                raise AssertionError(f"{name}: bad wave (len {len(w)})")
-        return out
+def k3_error(x, qs):
+    """(max abs err, max|plain|, elements that differ, elements)."""
+    got = quantized_stage(x, qs)
+    torch.cuda.synchronize()
+    want = quantized_stage_plain(x, qs)
+    diff = (got - want).abs()
+    return diff.max().item(), want.abs().max().item(), int((diff > 0).sum()), diff.numel()
 
+
+def phase_k3(dev, gen, vocoder, k2_stage_ms):
+    """K3 in both modes at the four HiFiGAN stage shapes of 512 frames, with
+    int8 scales calibrated on the same input.  Returns the int8 totals (the
+    main path's mode)."""
+    totals = {m: dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0, err=0.0) for m in ("int8", "bf16")}
+    for i, scale in enumerate(STAGE_SCALES):
+        sw = vocoder.stage_weights(i)
+        c, t = sw.channels, scale * K2_FRAMES
+        x = torch.randn(1, t, c, generator=gen, device=dev)
+        scales = calibrate_stage_scales(x, sw)
+        for mode, tot in totals.items():
+            qs = quantize_stage(sw, mode, scales if mode == "int8" else None)
+            err, peak, n_diff, n = k3_error(x, qs)
+            ms = time_ms(lambda: quantized_stage(x, qs), 3)
+            plain_ms = time_ms(lambda: quantized_stage_plain(x, qs), 1)
+            flops = 252 * t * c * c
+            nbytes = (8 * t * c + qs.w.numel() * qs.w.element_size()
+                      + 4 * (qs.deq.numel() + qs.bias.numel() + qs.qin.numel()))
+            bound_ms, bound_by = bound(flops, nbytes, PEAK[mode])
+            log("k3", f"{mode} stage {i}: B=1 T={t} C={c} max_abs_err={err:.3e} "
+                      f"(max|out| {peak:.3e}, {n_diff} of {n} elements differ) "
+                      f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} k2_ms={k2_stage_ms[i]:.3f} "
+                      f"bound_ms={bound_ms:.4f} ({bound_by}) "
+                      f"achieved_tops={flops / ms / 1e9:.2f}")
+            if not err <= TOL_K3[mode] * peak:
+                raise AssertionError(f"K3 {mode} disagrees with its plain version at stage {i}")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["flops"] += flops
+            tot["nbytes"] += nbytes
+            tot["err"] = max(tot["err"], err)
+    for mode, tot in totals.items():
+        tot["bound_ms"], tot["bound_by"] = bound(tot["flops"], tot["nbytes"], PEAK[mode])
+        log("k3", f"{mode}, four stages of {K2_FRAMES} frames: kernel_ms={tot['ms']:.3f} "
+                  f"plain_ms={tot['plain_ms']:.3f} bound_ms={tot['bound_ms']:.4f} "
+                  f"k2_ms={sum(k2_stage_ms):.3f}")
+    tot = totals["int8"]
+    return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                bound_by=tot["bound_by"], library_ms=None, max_abs_err=tot["err"])
+
+
+def main_path_cases():
+    """The syntheses of the main path: ``__call__`` on LONG_TEXT, the same
+    with 8 frames per phone, and ``synthesize_batch(BATCH_TEXTS)``.  Each
+    with its phone counts and bucket (the encoder's K1), its vocoder frames
+    and mel lengths (the decoder's K1; the vocoder's stages run over scale x
+    frames).  Seeded random weights predict 1 frame per phone."""
+    fe = TextFrontend(language="en")
+    n = len(fe.string_to_features(LONG_TEXT))
+    batch = [len(fe.string_to_features(t)) for t in BATCH_TEXTS]
+    bucket, b_bucket = _round_up(n, PHONE_BUCKET), _round_up(max(batch), PHONE_BUCKET)
+    return [("call", [n], bucket, bucket * FRAMES_PER_PHONE, [n]),
+            ("call, 8 frames per phone", [n], bucket, _round_up(8 * n + 2, 64), [8 * n]),
+            ("synthesize_batch", batch, b_bucket, b_bucket * FRAMES_PER_PHONE, batch)]
+
+
+def phase_shapes(dev, gen, vocoder, rows):
+    """K1, K2, K3 (int8, scales calibrated on the same input) and K5
+    against their plain versions at the shapes the main path gives them;
+    each error folds into its kernel's row of ``rows``."""
+    cfg = ToucanTTSConfig()
+    h, d = cfg.aheads, cfg.adim // cfg.aheads
+    for name, counts, bucket, frames, mel_lens in main_path_cases():
+        b = len(counts)
+        for t, lens in ((bucket, counts), (frames, mel_lens)):
+            err, _ = k1_error(k1_inputs(gen, dev, b, h, d, t, lens))
+            log("shapes", f"{name}: k1 B={b} H={h} T={t} d={d} lengths={lens} "
+                          f"max_abs_err={err:.3e}")
+            if not err <= TOL_K1:
+                raise AssertionError(f"K1 disagrees with its plain version: {name}, T={t}")
+            rows["k1"]["max_abs_err"] = max(rows["k1"]["max_abs_err"], err)
+        for i, scale in enumerate(STAGE_SCALES):
+            sw = vocoder.stage_weights(i)
+            c, t = sw.channels, scale * frames
+            x = torch.randn(b, t, c, generator=gen, device=dev)
+            err2, excess = k2_error(x, sw)
+            qs = quantize_stage(sw, "int8", calibrate_stage_scales(x, sw))
+            err3, peak, n_diff, n = k3_error(x, qs)
+            del x
+            err5 = k5_error(*k5_inputs(gen, dev, b, t, c))
+            log("shapes", f"{name}: stage {i} B={b} T={t} C={c} max_abs_err k2={err2:.3e} "
+                          f"k3 int8={err3:.3e} (max|out| {peak:.3e}, {n_diff} of {n} differ) "
+                          f"k5={err5:.3e}")
+            if not excess <= TOL_K2[0]:
+                raise AssertionError(f"K2 disagrees with its plain version: {name}, stage {i}")
+            if not err3 <= TOL_K3["int8"] * peak:
+                raise AssertionError(f"K3 disagrees with its plain version: {name}, stage {i}")
+            if not err5 <= TOL_K5:
+                raise AssertionError(f"K5 disagrees with its plain version: {name}, stage {i}")
+            for k, err in (("k2", err2), ("k3", err3), ("k5", err5)):
+                rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err)
+
+
+WRAPPERS = {"k1": flash_rel_attention, "k2": hifigan_stage, "k3": quantized_stage,
+            "k5": alias_free_snake}
+
+
+def drive(name, fn, expect, launches, waves_of=lambda out: [out], frame=384):
+    """One main-path run: every count to 0, drive, synchronize, read the
+    counts.  ``expect`` {kernel: launches}; every other kernel must stay at
+    0.  Adds the counts to ``launches`` and checks the waves."""
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    got = {k: w.launches for k, w in WRAPPERS.items()}
+    for k, n in got.items():
+        launches[k] += n
+    waves = waves_of(out)
+    audio = sum(len(w) for w in waves) / 24000
+    log("main", f"{name}: latency_s={sec:.4f} audio_s={audio:.3f} "
+                f"audio_s_per_s={audio / sec:.3f} "
+                + " ".join(f"{k}_launches={n}" for k, n in got.items()))
+    want = {k: expect.get(k, 0) for k in WRAPPERS}
+    if got != want:
+        raise AssertionError(f"{name}: expected launches {want}, got {got}")
+    for w in waves:
+        if not (len(w) > 0 and len(w) % frame == 0 and np.isfinite(w).all()):
+            raise AssertionError(f"{name}: bad wave (len {len(w)})")
+    return out
+
+
+def per_synthesis(n, **kernels):
+    return {k: v * n for k, v in kernels.items()}
+
+
+def check_length(wave, dur):
+    if len(wave) != int(dur.sum()) // 2 * 2 * 384:
+        raise AssertionError(f"wave length {len(wave)} for durations summing to {dur.sum()}")
+
+
+def phase_main(iface, launches, per_call, label):
+    """``__call__`` (first, steady, profiled), explicit durations and
+    ``synthesize_batch``; ``per_call`` the launches of one synthesis."""
     n = len(iface.text2phone.string_to_features(LONG_TEXT))
-    log("main", f"text of {n} phones -> bucket {-(-n // 32) * 32}, {-(-n // 32) * 32 * 16} frames")
+    log("main", f"{label}: text of {n} phones -> bucket {-(-n // 32) * 32}, "
+                f"{-(-n // 32) * 32 * 16} frames")
     for name in ("call (first)", "call"):
-        wave, dur, _, _ = run(name, lambda: iface(LONG_TEXT, return_duration_pitch_energy=True),
-                              1, lambda out: out[:1])
-        if len(wave) != int(dur.sum()) // 2 * 2 * 384:
-            raise AssertionError(f"wave length {len(wave)} for durations summing to {dur.sum()}")
+        wave, dur, _, _ = drive(f"{label} {name}",
+                                lambda: iface(LONG_TEXT, return_duration_pitch_energy=True),
+                                per_synthesis(1, **per_call), launches, lambda out: out[:1])
+        check_length(wave, dur)
+    profiled_call(iface, launches, per_call, label)
+    wave, dur, _, _ = drive(f"{label} call, 8 frames per phone",
+                            lambda: iface(LONG_TEXT, durations=np.full(n, 8),
+                                          return_duration_pitch_energy=True),
+                            per_synthesis(1, **per_call), launches, lambda out: out[:1])
+    check_length(wave, dur)
+    log("main", f"{label} explicit durations: {len(wave) // 384} frames")
+    drive(f"{label} synthesize_batch x4", lambda: iface.synthesize_batch(BATCH_TEXTS),
+          per_synthesis(1, **per_call), launches, list)
+    return n
+
+
+def profiled_call(iface, launches, per_call, label):
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run("call (profiled)", lambda: iface(LONG_TEXT), 1)
+        drive(f"{label} call (profiled)", lambda: iface(LONG_TEXT), per_synthesis(1, **per_call),
+              launches)
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us)
-    wave, dur, _, _ = run("call, 8 frames per phone",
-                          lambda: iface(LONG_TEXT, durations=np.full(n, 8),
-                                        return_duration_pitch_energy=True), 1, lambda out: out[:1])
-    if len(wave) != int(dur.sum()) // 2 * 2 * 384:
-        raise AssertionError(f"wave length {len(wave)} for durations summing to {dur.sum()}")
-    log("main", f"explicit durations: {len(wave) // 384} frames")
-    run("synthesize_batch x4", lambda: iface.synthesize_batch(BATCH_TEXTS), 1, list)
+    report_profile(prof, wall_us, label)
+
+
+def phase_main_hifigan(iface, launches):
+    phase_main(iface, launches, dict(k1=12, k2=4), "hifigan")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "out.wav")
         # the file joins the waves with silences of 10600 samples
-        run("read_to_file x2", lambda: iface.read_to_file(BATCH_TEXTS[:2], path), 2, frame=1)
+        drive("hifigan read_to_file x2", lambda: iface.read_to_file(BATCH_TEXTS[:2], path),
+              per_synthesis(2, k1=12, k2=4), launches, frame=1)
         log("main", f"read_to_file wrote {os.path.getsize(path)} bytes")
 
 
-def report_profile(prof, wall_us):
+def phase_main_int8(iface, launches):
+    """quantize_vocoder on the card, then the int8 path; the int8 wave
+    against the exact (K2) wave of the same call and noise."""
+    n = len(iface.text2phone.string_to_features(LONG_TEXT))
+    z = (0.8 * np.random.RandomState(SEED + 1).randn(-(-n // 32) * 32 * 16, 80)).astype(np.float32)
+    exact = drive("int8 path: exact call, fixed noise", lambda: iface(LONG_TEXT, glow_noise=z),
+                  per_synthesis(1, k1=12, k2=4), launches)
+    scales = drive("int8 path: quantize_vocoder (calibration pass)", iface.quantize_vocoder,
+                   per_synthesis(1, k1=12, k2=4), launches, lambda out: [])
+    log("main", "int8 scales per stage (min..max): " + ", ".join(
+        f"{i}: {v.min().item():.3e}..{v.max().item():.3e}" for i, v in scales.items()))
+    wave = drive("int8 call, fixed noise", lambda: iface(LONG_TEXT, glow_noise=z),
+                 per_synthesis(1, k1=12, k3=4), launches)
+    if wave.shape != exact.shape:
+        raise AssertionError(f"int8 wave of {wave.shape} against exact {exact.shape}")
+    err, peak = float(np.abs(wave - exact).max()), float(np.abs(exact).max())
+    snr = 10 * np.log10((exact ** 2).mean() / max(((wave - exact) ** 2).mean(), 1e-30))
+    log("main", f"int8 against exact wave: max_abs_err={err:.3e} "
+                f"(bound {TOL_INT8_WAVE} x peak {peak:.3e}), SNR {snr:.1f} dB "
+                f"(bound {INT8_SNR_DB} dB)")
+    if not (peak > 0 and err <= TOL_INT8_WAVE * peak and snr > INT8_SNR_DB):
+        raise AssertionError("the int8 wave is too far from the exact one")
+    for name in ("int8 call", "int8 call (steady)"):
+        drive(name, lambda: iface(LONG_TEXT), per_synthesis(1, k1=12, k3=4), launches)
+    profiled_call(iface, launches, dict(k1=12, k3=4), "int8")
+    drive("int8 synthesize_batch x4", lambda: iface.synthesize_batch(BATCH_TEXTS),
+          per_synthesis(1, k1=12, k3=4), launches, list)
+    return scales
+
+
+def report_profile(prof, wall_us, label):
     """Device time by kernel and the device's busy share of one __call__."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
@@ -230,19 +495,21 @@ def report_profile(prof, wall_us):
     if not kernels:
         log("profile", "no device time in the trace: device breakdown not measured")
         return
-    log("profile", f"one __call__: wall {wall_us / 1e3:.2f} ms, device busy {busy / 1e3:.2f} ms "
+    log("profile", f"{label}, one __call__: wall {wall_us / 1e3:.2f} ms, "
+                   f"device busy {busy / 1e3:.2f} ms "
                    f"({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         name = e.key
-        for short in ("flash_rel_kernel", "stage_kernel"):
+        for short in ("flash_rel_kernel", "stage_q_kernel", "stage_kernel",
+                      "alias_free_snake_kernel"):
             if short in name:
                 name = f"{short} (port kernel)"
         log("profile", f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {name[:90]}")
 
 
-def phase_ref(iface, tts_sd, voc_sd):
-    """The card against the CPU (plain versions) on the same weights and noise."""
-    cpu = ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED)
+def phase_ref(label, iface, cpu, tol_wave, relative=False):
+    """The card against the CPU (plain versions) on the same weights and
+    noise; ``relative``: the wave's tolerance is a share of its peak."""
     text = "Hello world, this is a test."
     feats = iface.text2phone.string_to_features(text)
     n = len(feats)
@@ -261,17 +528,20 @@ def phase_ref(iface, tts_sd, voc_sd):
                                  glow_noise=torch.tensor(noise, device=d))
         outs[name] = [r.cpu().numpy() for r in res]
     if not np.array_equal(outs["cuda"][2], outs["cpu"][2]):
-        raise AssertionError("predicted durations differ between the card and the CPU")
+        raise AssertionError(f"{label}: predicted durations differ between the card and the CPU")
     mel_err = np.abs(outs["cuda"][1] - outs["cpu"][1]).max()
     z = noise[0, :64]
     w_cuda = iface(text, durations=np.full(n, 2), glow_noise=z)
     w_cpu = cpu(text, durations=np.full(n, 2), glow_noise=z)
     wave_err = np.abs(w_cuda - w_cpu).max() if w_cuda.shape == w_cpu.shape else float("inf")
-    log("ref", f"{n} phones: durations equal, mel max_abs_err={mel_err:.3e}, "
-               f"wave ({len(w_cuda)} samples, peak {np.abs(w_cpu).max():.3e}) "
-               f"max_abs_err={wave_err:.3e}, tolerance {TOL_REF}")
-    if not (mel_err <= TOL_REF and wave_err <= TOL_REF):
-        raise AssertionError("the card disagrees with the CPU reference")
+    peak = float(np.abs(w_cpu).max())
+    if relative:
+        tol_wave *= peak
+    log("ref", f"{label}, {n} phones: durations equal, mel max_abs_err={mel_err:.3e}, "
+               f"wave ({len(w_cuda)} samples, peak {peak:.3e}) "
+               f"max_abs_err={wave_err:.3e}, tolerance {TOL_REF} (mel), {tol_wave:.3e} (wave)")
+    if not (peak > 0 and mel_err <= TOL_REF and wave_err <= tol_wave):
+        raise AssertionError(f"{label}: the card disagrees with the CPU reference")
 
 
 def main():
@@ -294,24 +564,51 @@ def main():
     torch.manual_seed(SEED)
     tts = ToucanTTS(ToucanTTSConfig())
     vocoder = HiFiGANGenerator()
+    bigvgan = BigVGAN()
+    with torch.no_grad():  # log-scale SnakeBeta parameters away from 0
+        for name, p in bigvgan.named_parameters():
+            if name.endswith(("alpha", "beta")):
+                p.copy_(0.3 * torch.randn_like(p))
     tts_sd = {k: v.clone() for k, v in tts.state_dict().items()}
     voc_sd = {k: v.clone() for k, v in vocoder.state_dict().items()}
-    k2 = phase_k2(dev, gen, vocoder.to(dev).eval())
+    big_sd = {k: v.clone() for k, v in bigvgan.state_dict().items()}
+    k2, k2_stage_ms = phase_k2(dev, gen, vocoder.to(dev).eval())
+    k5 = phase_k5(dev, gen)
+    k3 = phase_k3(dev, gen, vocoder, k2_stage_ms)
+    phase_shapes(dev, gen, vocoder, dict(k1=k1, k2=k2, k3=k3, k5=k5))
 
+    launches = dict.fromkeys(WRAPPERS, 0)
     iface = ToucanTTSInterface(tts_sd, voc_sd, seed=SEED)
-    launches = [0, 0]
-    phase_main(iface, launches)
-    phase_ref(iface, tts_sd, voc_sd)
+    phase_main_hifigan(iface, launches)
+    phase_ref("hifigan", iface, ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED),
+              TOL_REF)
+    big = ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan", seed=SEED)
+    phase_main(big, launches, dict(k1=12, k5=K5_LAUNCHES), "bigvgan")
+    phase_ref("bigvgan", big, ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan",
+                                                 device="cpu", seed=SEED), TOL_REF)
+    del big
+    scales = phase_main_int8(iface, launches)
+    cpu_int8 = ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED)
+    cpu_int8.quantize_vocoder(act_scales={i: v.cpu() for i, v in scales.items()})
+    phase_ref("int8 hifigan", iface, cpu_int8, TOL_REF_INT8, relative=True)
 
     kernels = [
         dict(name="flash_rel_attention", route="cuda",
              source="toucan_tpu_torch/csrc/flash_rel_attention.cu",
-             replaces="toucan_tpu/kernels/pallas_attention.py:109", launches=launches[0],
+             replaces="toucan_tpu/kernels/pallas_attention.py:109", launches=launches["k1"],
              **k1),
         dict(name="hifigan_stage", route="cuda",
              source="toucan_tpu_torch/csrc/hifigan_stage.cu",
-             replaces="toucan_tpu/kernels/pallas_resstack.py:122", launches=launches[1],
+             replaces="toucan_tpu/kernels/pallas_resstack.py:122", launches=launches["k2"],
              **k2),
+        dict(name="hifigan_stage_q", route="cuda",
+             source="toucan_tpu_torch/csrc/hifigan_stage_q.cu",
+             replaces="toucan_tpu/kernels/pallas_stage.py:259", launches=launches["k3"],
+             **k3),
+        dict(name="alias_free_snake", route="cuda",
+             source="toucan_tpu_torch/csrc/alias_free_snake.cu",
+             replaces="toucan_tpu/kernels/pallas_aliasfree.py:117", launches=launches["k5"],
+             **k5),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,7 +3,8 @@
 Counterpart of ``toucan_tpu/infer/interface.py`` (reference
 ``InferenceInterfaces/ToucanTTSInterface.py``): language/accent setters,
 the utterance embedding, the prosody-control knobs, per-phone prosody
-overrides, batched synthesis and ``read_to_file``.  Inputs are padded to
+overrides, batched synthesis, ``read_to_file``, the HiFiGAN or BigVGAN
+vocoder and ``quantize_vocoder`` (int8 HiFiGAN stages).  Inputs are padded to
 the same buckets as the JAX interface (32 phones, 16 frames per phone,
 64 vocoder frames), so both compute on the same shapes.  Text to wave runs
 on the device without a host round trip; frames past each mel length are
@@ -15,20 +16,24 @@ from __future__ import annotations
 import itertools
 import math
 import wave as wave_mod
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from toucan_tpu_torch.frontend.text import TextFrontend, language_id
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
-from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
+from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
+from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator, calibrate_act_scales
 from toucan_tpu_torch.utils.device import resolve_device
 
+VOCODERS = {"hifigan": HiFiGANGenerator, "bigvgan": BigVGAN}
 PHONE_BUCKET = 32
 FRAMES_PER_PHONE = 16       # static upper bound for the upsampled length
 SAMPLES_PER_FRAME = 384     # 24 kHz out / 16 kHz-rate mel frames (hop 256)
 SENTENCE_JOIN_SILENCE = 10600
+CALIBRATION_PANGRAM = "~ðə kwˈɪk bɹˈaʊn fˈɑks dʒˈʌmps ˈoʊvəɹ ðə lˈeɪzi dˈɔɡ~#"
 
 
 def _round_up(n, m):
@@ -38,23 +43,30 @@ def _round_up(n, m):
 class ToucanTTSInterface:
     def __init__(self, tts_state_dict, vocoder_state_dict,
                  config: Optional[ToucanTTSConfig] = None,
-                 vocoder: Optional[HiFiGANGenerator] = None, default_embedding=None,
+                 vocoder: Union[str, nn.Module] = "hifigan", default_embedding=None,
                  language: str = "en", use_g2p: bool = True, seed: int = 0, device=None):
-        """``vocoder`` is a HiFiGANGenerator of the checkpoint's widths
-        (default ``HiFiGANGenerator()``); the state dicts are loaded into the
-        models.  ``device`` defaults to the card; pass "cpu" for the CPU."""
+        """``vocoder`` is "hifigan" (``HiFiGANGenerator()``), "bigvgan"
+        (``BigVGAN()``) or a vocoder module of the checkpoint's widths; the
+        state dicts are loaded into the models.  ``device`` defaults to the
+        card; pass "cpu" for the CPU."""
         self.device = resolve_device(device)
         self.config = config or ToucanTTSConfig()
         self.model = ToucanTTS(self.config)
         self.model.load_state_dict(tts_state_dict)
         self.model.to(self.device).eval()
-        self.vocoder = vocoder if vocoder is not None else HiFiGANGenerator()
+        if isinstance(vocoder, str):
+            if vocoder not in VOCODERS:
+                raise ValueError(f"vocoder must be one of {sorted(VOCODERS)} or a module, "
+                                 f"got {vocoder!r}")
+            vocoder = VOCODERS[vocoder]()
+        self.vocoder = vocoder
         self.vocoder.load_state_dict(vocoder_state_dict)
         self.vocoder.to(self.device).eval()
         self.use_g2p = use_g2p
         self._frontends = {}
         self.set_language(language)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self._voc_act_scales = None  # set by quantize_vocoder (int8 stages)
         if default_embedding is None and self.config.utt_embed_dim is not None:
             default_embedding = np.zeros(self.config.utt_embed_dim, np.float32)
         self.default_utterance_embedding = (
@@ -75,6 +87,53 @@ class ToucanTTSInterface:
 
     def set_utterance_embedding(self, embedding):
         self.default_utterance_embedding = np.asarray(embedding, np.float32).reshape(-1)
+
+    def quantize_vocoder(self, calibration_mel=None, calibration_text=None, act_scales=None):
+        """Switch the HiFiGAN vocoder to int8 stages (K3) with activation
+        scales calibrated on a representative mel.
+
+        ``calibration_mel``: (B, T, 80) log-mel; default: one synthesized
+        from ``calibration_text`` (IPA; default a built-in pangram) through
+        the acoustic model, with glow noise from the interface's generator,
+        so the scales follow serving statistics.  ``act_scales``: scales of
+        an earlier calibration ({stage: (18,)}) to use instead of
+        calibrating.  Returns the scales, kept on the device.
+        """
+        if not isinstance(self.vocoder, HiFiGANGenerator):
+            raise ValueError("int8 serving mode supports the HiFiGAN/Avocodo generator")
+        if act_scales is not None:
+            scales = {i: torch.as_tensor(v, dtype=torch.float32, device=self.device)
+                      for i, v in act_scales.items()}
+        else:
+            if calibration_mel is None:
+                mel = self._calibration_mel(calibration_text or CALIBRATION_PANGRAM)
+            else:
+                mel = torch.as_tensor(calibration_mel, dtype=torch.float32, device=self.device)
+            scales = calibrate_act_scales(self.vocoder, mel)
+        self._voc_act_scales = scales
+        self.vocoder.stage_mode = "int8"
+        return scales
+
+    @torch.inference_mode()
+    def _calibration_mel(self, text: str) -> torch.Tensor:
+        phones = self.text2phone.string_to_features(text, input_phonemes=True)
+        n = len(phones)
+        n_pad = _round_up(n, PHONE_BUCKET)
+        text_arr = np.zeros((1, n_pad, phones.shape[1]), np.float32)
+        text_arr[0, :n] = phones
+        max_frames = n_pad * FRAMES_PER_PHONE
+        lang = (None if self.lang_id is None
+                else torch.tensor([[self.lang_id]], device=self.device))
+        _, after, *_, lens = self.model.infer(
+            self._tensor(text_arr), torch.tensor([n], device=self.device), max_frames,
+            utterance_embedding=self._utt(1), lang_ids=lang,
+            glow_noise=self._noise(1, max_frames))
+        return after[:, :int(lens[0])]
+
+    def _vocoder_call(self, mel):
+        if self._voc_act_scales is None:
+            return self.vocoder(mel)
+        return self.vocoder(mel, act_scales=self._voc_act_scales)
 
     def _frontend(self, lang: str) -> TextFrontend:
         if lang not in self._frontends:
@@ -106,7 +165,7 @@ class ToucanTTSInterface:
             glow_noise=noise)
         mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
         mel = torch.where(mask, after, torch.zeros((), device=after.device))
-        wave = self.vocoder(mel)[..., 0]
+        wave = self._vocoder_call(mel)[..., 0]
         return wave, after, dur, pit, ene, lens
 
     @torch.inference_mode()
@@ -115,7 +174,7 @@ class ToucanTTSInterface:
         frames = _round_up(len(mel), 64)
         mel_p = np.zeros((1, frames, mel.shape[1]), np.float32)
         mel_p[0, :len(mel)] = mel
-        wave = self.vocoder(self._tensor(mel_p))
+        wave = self._vocoder_call(self._tensor(mel_p))
         return wave[0, :len(mel) * SAMPLES_PER_FRAME, 0].cpu().numpy()
 
     def _utt(self, b: int):

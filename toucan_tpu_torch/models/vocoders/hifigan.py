@@ -4,9 +4,15 @@ Counterpart of ``toucan_tpu/models/vocoders/hifigan.py``; reference
 ``TrainingInterfaces/Spectrogram_to_Wave/HiFiGAN/HiFiGAN.py:13-179``.
 80-band mel frames -> 24 kHz wave through 8*6*4*2 = 384x upsampling.  Each
 stage is a transposed conv and then three residual stacks averaged: that
-stage is ``kernels/resstack.py::hifigan_stage``, the CUDA kernel on CUDA
-tensors and its plain version on CPU tensors.  Parameter names are the
-reference's state-dict keys with weight norm folded.  The Avocodo taps
+stage is ``kernels/resstack.py::hifigan_stage`` (K2), the CUDA kernel on
+CUDA tensors and its plain version on CPU tensors.  That is
+``stage_mode="f32"``, the default: the JAX package's "" and "f32" modes
+are one function.  With ``stage_mode="int8"`` or ``"bf16"`` every stage
+runs ``kernels/stage.py::quantized_stage`` (K3) instead; int8 takes
+per-stage activation scales from ``calibrate_act_scales``.  The JAX package
+picks the stages its stage kernel may run by their folded width; without
+folding every stage of the port is eligible, so it has no ``stage_indices``.
+Parameter names are the reference's state-dict keys with weight norm folded.  The Avocodo taps
 ``out_proj_x1``/``out_proj_x2`` are kept as parameters for the training
 slice; inference does not run them.
 """
@@ -17,6 +23,8 @@ import torch
 from torch import nn
 
 from toucan_tpu_torch.kernels.resstack import StageWeights, hifigan_stage, pack_stage
+from toucan_tpu_torch.kernels.stage import (MODES, QuantizedStage, calibrate_stage_scales,
+                                            quantize_stage, quantized_stage)
 from toucan_tpu_torch.nn.convolution import same_conv
 
 
@@ -38,8 +46,12 @@ class HiFiGANGenerator(nn.Module):
                  upsample_scales: Tuple[int, ...] = (8, 6, 4, 2),
                  upsample_kernel_sizes: Tuple[int, ...] = (16, 12, 8, 4),
                  resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11),
-                 resblock_dilations: Tuple[int, ...] = (1, 3, 5), slope: float = 0.1):
+                 resblock_dilations: Tuple[int, ...] = (1, 3, 5), slope: float = 0.1,
+                 stage_mode: str = "f32"):
         super().__init__()
+        if stage_mode not in ("f32",) + MODES:
+            raise ValueError(f"stage_mode must be 'f32', 'int8' or 'bf16', got {stage_mode!r}")
+        self.stage_mode = stage_mode
         self.slope = slope
         self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
         self.resblock_dilations = tuple(resblock_dilations)
@@ -63,6 +75,7 @@ class HiFiGANGenerator(nn.Module):
             if isinstance(m, (nn.Conv1d, nn.ConvTranspose1d)):
                 nn.init.normal_(m.weight, 0.0, 0.01)
         self._packed = {}
+        self._quantized = {}
 
     def stage_weights(self, i: int) -> StageWeights:
         """Stage i's 18 convs packed for the kernel, rebuilt only when the
@@ -79,12 +92,53 @@ class HiFiGANGenerator(nn.Module):
                                                self.resblock_dilations, self.slope))
         return self._packed[i][1]
 
+    def quantized_stage_weights(self, i: int, scales=None) -> QuantizedStage:
+        """Stage i quantized for ``stage_mode`` with its (18,) activation
+        scales, rebuilt only when the packed weights, the mode or the scales
+        tensor change."""
+        sw = self.stage_weights(i)
+        version = None if scales is None else scales._version
+        hit = self._quantized.get(i)
+        if hit is None or hit[0] is not sw or hit[1] != self.stage_mode \
+                or hit[2] is not scales or hit[3] != version:
+            hit = (sw, self.stage_mode, scales, version,
+                   quantize_stage(sw, self.stage_mode, scales))
+            self._quantized[i] = hit
+        return hit[4]
+
     @torch.no_grad()
-    def forward(self, c):
-        """c (B, T, 80) -> wave (B, 384*T, 1)."""
+    def forward(self, c, act_scales=None):
+        """c (B, T, 80) -> wave (B, 384*T, 1).  ``act_scales``: {stage: (18,)}
+        from ``calibrate_act_scales``, needed by stage_mode="int8"."""
+        return self._run(c, act_scales)
+
+    def _run(self, c, act_scales=None, stage_inputs=None):
+        """The generator; with a list ``stage_inputs`` it records each
+        stage's (B, T, C) input and runs every stage exactly (K2)."""
         x = self.input_conv(c.transpose(1, 2))
         for i, up in enumerate(self.upsamples):
-            x = up(x)
-            x = hifigan_stage(x.transpose(1, 2).contiguous(), self.stage_weights(i))
+            x = up(x).transpose(1, 2).contiguous()
+            if stage_inputs is not None:
+                stage_inputs.append(x)
+            if stage_inputs is None and self.stage_mode in MODES:
+                scales = None if act_scales is None else act_scales[i]
+                x = quantized_stage(x, self.quantized_stage_weights(i, scales))
+            else:
+                x = hifigan_stage(x, self.stage_weights(i))
             x = x.transpose(1, 2)
         return self.output_conv(x).transpose(1, 2)
+
+
+@torch.no_grad()
+def calibrate_act_scales(model: HiFiGANGenerator, mel: torch.Tensor) -> dict:
+    """Per-stage activation scales for ``stage_mode="int8"``.
+
+    Runs the exact generator (K2 at every stage, whatever ``stage_mode``)
+    once on a representative mel (B, T, 80), records each stage's input and
+    computes its per-conv max activations
+    (``kernels/stage.py::calibrate_stage_scales``).  Returns
+    ``{stage: (18,) f32}`` on the model's device, to pass as ``act_scales``.
+    """
+    inputs = []
+    model._run(mel, stage_inputs=inputs)
+    return {i: calibrate_stage_scales(x, model.stage_weights(i)) for i, x in enumerate(inputs)}

@@ -4,7 +4,8 @@ The JAX package keeps its weights as nested dicts (``params``,
 ``batch_stats``, ``buffers``); these functions take such dicts of numpy
 arrays and return the port's ``state_dict``, whose keys are the reference
 IMS-Toucan ones.  They invert ``toucan_tpu/compat/torch_toucan.py::
-convert_toucan_tts`` and ``compat/torch_vocoder.py::convert_hifigan``:
+convert_toucan_tts`` and ``compat/torch_vocoder.py::convert_hifigan`` /
+``convert_bigvgan``:
 only layouts change (flax (k, in, out) conv kernels and (in, out) dense
 kernels become torch (out, in, k) and (out, in)), never values.  No JAX
 is needed to call them.
@@ -163,11 +164,46 @@ def hifigan_from_jax(variables) -> dict:
                 w.conv(f"blocks.{i * n_stacks + j}.convs1.{d}.1", blk[f"conv1_{d}"])
                 w.conv(f"blocks.{i * n_stacks + j}.convs2.{d}.1", blk[f"conv2_{d}"])
     w.conv("output_conv.1", p["output_conv"])
+    _avocodo_taps(w, p, "upsample_{}_bias")
+    return w.sd
+
+
+def _avocodo_taps(w: _Writer, p, bias_key: str):
+    """The taps out_proj_x1/x2 after stages 1 and 2, zero when absent."""
     for name, stage in (("out_proj_x1", 1), ("out_proj_x2", 2)):
         if name in p:
             w.conv(name, p[name])
         else:
-            ch = np.asarray(p[f"upsample_{stage}_bias"]).shape[0]
+            ch = np.asarray(p[bias_key.format(stage)]).shape[0]
             w.sd[f"{name}.weight"] = torch.zeros(1, ch, 7)
             w.sd[f"{name}.bias"] = torch.zeros(1)
+
+
+def bigvgan_from_jax(variables) -> dict:
+    """JAX BigVGAN variables -> the port's BigVGAN state dict.
+
+    Inverts ``compat/torch_vocoder.py::convert_bigvgan``.  As for HiFiGAN,
+    the Avocodo taps are set to zero when the JAX variables lack them.
+    """
+    p = variables["params"]
+    w = _Writer()
+    w.conv("conv_pre", p["conv_pre"])
+    n_up = sum(1 for k in p if re.fullmatch(r"up_\d+_kernel", k))
+    n_blocks = sum(1 for k in p if k.startswith("amp_0_"))
+    for i in range(n_up):
+        # JAX (k, out, in) -> torch ConvTranspose1d (in, out, k)
+        w.sd[f"ups.{i}.0.weight"] = _t(np.transpose(np.asarray(p[f"up_{i}_kernel"]), (2, 1, 0)))
+        w.sd[f"ups.{i}.0.bias"] = _t(p[f"up_{i}_bias"])
+        for j in range(n_blocks):
+            blk, base = p[f"amp_{i}_{j}"], f"resblocks.{i * n_blocks + j}"
+            for d in range(_count(blk, "conv1_")):
+                w.conv(f"{base}.convs1.{d}", blk[f"conv1_{d}"])
+                w.conv(f"{base}.convs2.{d}", blk[f"conv2_{d}"])
+            for m in range(_count(blk, "alpha_")):
+                w.sd[f"{base}.activations.{m}.act.alpha"] = _t(blk[f"alpha_{m}"])
+                w.sd[f"{base}.activations.{m}.act.beta"] = _t(blk[f"beta_{m}"])
+    w.sd["activation_post.act.alpha"] = _t(p["post_alpha"])
+    w.sd["activation_post.act.beta"] = _t(p["post_beta"])
+    w.conv("conv_post", p["conv_post"])
+    _avocodo_taps(w, p, "up_{}_bias")
     return w.sd
