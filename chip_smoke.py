@@ -20,12 +20,16 @@ Phases, each reported on its own lines:
 5. k3: the quantized HiFiGAN stage kernel, int8 and bf16, against its plain
    versions at the four stage shapes of 512 mel frames, with scales
    calibrated on the same input, K2's time beside it;
-6. shapes: K1, K2, K3 (int8) and K5 against their plain versions at the
-   shapes the main path gives them: batch size, sequence lengths and stage
-   lengths of the ``__call__`` on 110 phones (2048 vocoder frames), of the
-   call with 8 frames per phone and of ``synthesize_batch`` (B = 4);
-7. main: the full-width model (default ToucanTTSConfig, seeded random
-   weights) through ``ToucanTTSInterface``, on three paths, each call with
+6. k4: the im2col HiFiGAN stage kernel, int8 and bf16, against its plain
+   versions at the shapes of stages 1-3 at 512 mel frames, with K2's and
+   K3 int8's times on the same stage beside it;
+7. shapes: K1, K2, K3 (int8), K4 (int8, stages 1-3) and K5 against their
+   plain versions at the shapes the main path gives them: batch size,
+   sequence lengths and stage lengths of the ``__call__`` on 110 phones
+   (2048 vocoder frames), of the call with 8 frames per phone (896) and of
+   ``synthesize_batch`` (B = 4);
+8. main: the full-width model (default ToucanTTSConfig, seeded random
+   weights) through ``ToucanTTSInterface``, on four paths, each call with
    its launches counted from 0:
    - HiFiGAN 512 channels: ``__call__`` on ~110 phones, ``__call__`` with
      explicit durations, ``synthesize_batch`` of four sentences and
@@ -37,14 +41,23 @@ Phases, each reported on its own lines:
      K2 4), then ``__call__`` and ``synthesize_batch``; K1 12 and K3 4 per
      synthesis, K2 none; the int8 wave against the exact one of the same
      call and noise (SNR above 25 dB, max error within 6 % of the peak);
-8. ref: the same weights on the CPU (plain versions) against the card, on a
-   short input, for the three paths.
+   - imcol: the same weights written as reference-format ``.pt`` files
+     (weight norm split), loaded by ``load.interface_from_torch`` with
+     ``HiFiGANGenerator(imcol_mode="int8")`` and the GST; the speaker set
+     from the HiFiGAN path's wave at 24 kHz (loudness, resampling, trim,
+     mel and GST); then ``__call__`` (first, steady, profiled), 8 frames per
+     phone and ``synthesize_batch``; K1 12, K2 1 (stage 0) and K4 3 per
+     synthesis; the int8 wave against the exact one of the same call;
+9. ref: the same weights on the CPU (plain versions) against the card, on a
+   short input, for the four paths (imcol: the embedding from the same
+   wave within 1e-4, and the wave within 1 % of its peak).
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
 nonzero.  TF32 is off for matmuls and cuDNN so every f32 path is f32.
 """
 
+import dataclasses
 import json
 import math
 import os
@@ -63,9 +76,13 @@ from toucan_tpu_torch.kernels import build
 from toucan_tpu_torch.kernels.aliasfree import alias_free_snake, alias_free_snake_plain
 from toucan_tpu_torch.kernels.flash_attention import (flash_rel_attention,
                                                       flash_rel_attention_plain)
+from toucan_tpu_torch.kernels.imcol import (imcol_fold, imcol_stage, imcol_stage_plain,
+                                            prepare_imcol_stage)
 from toucan_tpu_torch.kernels.resstack import hifigan_stage, hifigan_stage_plain
 from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_stage,
                                             quantized_stage, quantized_stage_plain)
+from toucan_tpu_torch.load import GLOW_WEIGHT_NORM, interface_from_torch, split_weight_norm
+from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
@@ -81,6 +98,15 @@ TOL_K5 = 2e-5
 # exact on both sides, but the f32 dequant chains and the bf16 stream can
 # round a value across a requantization boundary in one and not the other
 TOL_K3 = {"int8": 1e-2, "bf16": 2e-2}
+# K4 against its plain version, as a share of max|out|: int8 takes the same
+# integer sums and the same f32 dequant chain in the same order on both
+# sides, so only an order difference could flip a requantization; bf16 sums
+# its f32 products in another order through 18 convs
+TOL_K4 = {"int8": 1e-5, "bf16": 1e-3}
+K4_STAGES = (1, 2, 3)  # the stages of at most 128 channels, which imcol_mode takes
+# the GST embedding from the same wave, card against CPU: f32 convs, GRU
+# and attention in other orders
+TOL_EMB = 1e-4
 # int8 wave against the exact one of the same call and noise, the bounds of
 # tests/test_pallas_stage.py: SNR above 25 dB, max error within 6 % of the peak
 INT8_SNR_DB = 25
@@ -131,7 +157,7 @@ def bound(flops, nbytes, peak=F32_PEAK):
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build(["flash_rel_attention", "hifigan_stage", "alias_free_snake",
-                        "hifigan_stage_q"])
+                        "hifigan_stage_q", "hifigan_imcol"])
     for name, text in logs.items():
         for line in text.splitlines():
             if "ptxas info" in line or "spill" in line or "error" in line.lower():
@@ -271,6 +297,18 @@ def phase_k5(dev, gen):
                 bound_by=bound_by, library_ms=None, max_abs_err=worst)
 
 
+def check_prepared_as_on_cpu(what, sw, card, prepare, *args):
+    """The stage weights ``prepare`` gives on the card equal, bit for bit,
+    what it gives on the CPU from the same weights: the quantization's
+    divisions are IEEE on both devices."""
+    cpu = prepare(dataclasses.replace(sw, w=sw.w.cpu(), b=sw.b.cpu()),
+                  *(a.cpu() if torch.is_tensor(a) else a for a in args))
+    for field in ("w", "scale", "qin", "deq", "bias"):
+        if hasattr(card, field) and not torch.equal(getattr(card, field).cpu(),
+                                                    getattr(cpu, field)):
+            raise AssertionError(f"{what}: {field} prepared on the card differs from the CPU's")
+
+
 def k3_error(x, qs):
     """(max abs err, max|plain|, elements that differ, elements)."""
     got = quantized_stage(x, qs)
@@ -285,6 +323,7 @@ def phase_k3(dev, gen, vocoder, k2_stage_ms):
     int8 scales calibrated on the same input.  Returns the int8 totals (the
     main path's mode)."""
     totals = {m: dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0, err=0.0) for m in ("int8", "bf16")}
+    int8_stage_ms = []
     for i, scale in enumerate(STAGE_SCALES):
         sw = vocoder.stage_weights(i)
         c, t = sw.channels, scale * K2_FRAMES
@@ -292,6 +331,8 @@ def phase_k3(dev, gen, vocoder, k2_stage_ms):
         scales = calibrate_stage_scales(x, sw)
         for mode, tot in totals.items():
             qs = quantize_stage(sw, mode, scales if mode == "int8" else None)
+            check_prepared_as_on_cpu(f"K3 {mode} stage {i}", sw, qs, quantize_stage, mode,
+                                     scales if mode == "int8" else None)
             err, peak, n_diff, n = k3_error(x, qs)
             ms = time_ms(lambda: quantized_stage(x, qs), 3)
             plain_ms = time_ms(lambda: quantized_stage_plain(x, qs), 1)
@@ -306,6 +347,8 @@ def phase_k3(dev, gen, vocoder, k2_stage_ms):
                       f"achieved_tops={flops / ms / 1e9:.2f}")
             if not err <= TOL_K3[mode] * peak:
                 raise AssertionError(f"K3 {mode} disagrees with its plain version at stage {i}")
+            if mode == "int8":
+                int8_stage_ms.append(ms)
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
             tot["flops"] += flops
@@ -316,6 +359,62 @@ def phase_k3(dev, gen, vocoder, k2_stage_ms):
         log("k3", f"{mode}, four stages of {K2_FRAMES} frames: kernel_ms={tot['ms']:.3f} "
                   f"plain_ms={tot['plain_ms']:.3f} bound_ms={tot['bound_ms']:.4f} "
                   f"k2_ms={sum(k2_stage_ms):.3f}")
+    tot = totals["int8"]
+    return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
+                bound_by=tot["bound_by"], library_ms=None, max_abs_err=tot["err"]), int8_stage_ms
+
+
+def k4_error(x, st):
+    """(max abs err, max|plain|, elements that differ, elements)."""
+    fold = imcol_fold(x.shape[-1])
+    got = imcol_stage(x, st, fold)
+    torch.cuda.synchronize()
+    want = imcol_stage_plain(x, st, fold)
+    diff = (got - want).abs()
+    return diff.max().item(), want.abs().max().item(), int((diff > 0).sum()), diff.numel()
+
+
+def phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms):
+    """K4 in both modes at the shapes of stages 1-3 of 512 frames.  The
+    bound counts least work: 252 T C^2 operations (the halo rows each
+    window recomputes do not count) at the int8 (or bf16) tensor-core rate,
+    against f32 in and out plus the weights.  Returns the int8 totals (the
+    main path's mode)."""
+    totals = {m: dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0, err=0.0) for m in ("int8", "bf16")}
+    for i in K4_STAGES:
+        sw = vocoder.stage_weights(i)
+        c, t = sw.channels, STAGE_SCALES[i] * K2_FRAMES
+        x = torch.randn(1, t, c, generator=gen, device=dev)
+        fold = imcol_fold(c)
+        for mode, tot in totals.items():
+            st = prepare_imcol_stage(sw, mode)
+            check_prepared_as_on_cpu(f"K4 {mode} stage {i}", sw, st, prepare_imcol_stage, mode)
+            err, peak, n_diff, n = k4_error(x, st)
+            ms = time_ms(lambda: imcol_stage(x, st, fold), 5)
+            plain_ms = time_ms(lambda: imcol_stage_plain(x, st, fold), 1)
+            flops = 252 * t * c * c
+            nbytes = (8 * t * c + st.w.numel() * st.w.element_size()
+                      + 4 * (st.scale.numel() + st.bias.numel()))
+            bound_ms, bound_by = bound(flops, nbytes, PEAK[mode])
+            log("k4", f"{mode} stage {i}: B=1 T={t} C={c} fold={fold} max_abs_err={err:.3e} "
+                      f"(max|out| {peak:.3e}, {n_diff} of {n} elements differ; weights "
+                      f"prepared as on the CPU) "
+                      f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} k2_ms={k2_stage_ms[i]:.3f} "
+                      f"k3_int8_ms={k3_stage_ms[i]:.3f} bound_ms={bound_ms:.4f} ({bound_by}) "
+                      f"achieved_tops={flops / ms / 1e9:.2f}")
+            if not err <= TOL_K4[mode] * peak:
+                raise AssertionError(f"K4 {mode} disagrees with its plain version at stage {i}")
+            tot["ms"] += ms
+            tot["plain_ms"] += plain_ms
+            tot["flops"] += flops
+            tot["nbytes"] += nbytes
+            tot["err"] = max(tot["err"], err)
+    for mode, tot in totals.items():
+        tot["bound_ms"], tot["bound_by"] = bound(tot["flops"], tot["nbytes"], PEAK[mode])
+        log("k4", f"{mode}, stages 1-3 of {K2_FRAMES} frames: kernel_ms={tot['ms']:.3f} "
+                  f"plain_ms={tot['plain_ms']:.3f} bound_ms={tot['bound_ms']:.4f} "
+                  f"k2_ms={sum(k2_stage_ms[i] for i in K4_STAGES):.3f} "
+                  f"k3_int8_ms={sum(k3_stage_ms[i] for i in K4_STAGES):.3f}")
     tot = totals["int8"]
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                 bound_by=tot["bound_by"], library_ms=None, max_abs_err=tot["err"])
@@ -337,9 +436,9 @@ def main_path_cases():
 
 
 def phase_shapes(dev, gen, vocoder, rows):
-    """K1, K2, K3 (int8, scales calibrated on the same input) and K5
-    against their plain versions at the shapes the main path gives them;
-    each error folds into its kernel's row of ``rows``."""
+    """K1, K2, K3 (int8, scales calibrated on the same input), K4 (int8,
+    stages 1-3) and K5 against their plain versions at the shapes the main
+    path gives them; each error folds into its kernel's row of ``rows``."""
     cfg = ToucanTTSConfig()
     h, d = cfg.aheads, cfg.adim // cfg.aheads
     for name, counts, bucket, frames, mel_lens in main_path_cases():
@@ -358,23 +457,29 @@ def phase_shapes(dev, gen, vocoder, rows):
             err2, excess = k2_error(x, sw)
             qs = quantize_stage(sw, "int8", calibrate_stage_scales(x, sw))
             err3, peak, n_diff, n = k3_error(x, qs)
+            err4, peak4 = 0.0, 0.0
+            if i in K4_STAGES:
+                err4, peak4, n_diff4, _ = k4_error(x, prepare_imcol_stage(sw, "int8"))
+                if not err4 <= TOL_K4["int8"] * peak4:
+                    raise AssertionError(f"K4 disagrees with its plain version: {name}, stage {i}")
             del x
             err5 = k5_error(*k5_inputs(gen, dev, b, t, c))
             log("shapes", f"{name}: stage {i} B={b} T={t} C={c} max_abs_err k2={err2:.3e} "
                           f"k3 int8={err3:.3e} (max|out| {peak:.3e}, {n_diff} of {n} differ) "
-                          f"k5={err5:.3e}")
+                          + (f"k4 int8={err4:.3e} (max|out| {peak4:.3e}, {n_diff4} differ) "
+                             if i in K4_STAGES else "") + f"k5={err5:.3e}")
             if not excess <= TOL_K2[0]:
                 raise AssertionError(f"K2 disagrees with its plain version: {name}, stage {i}")
             if not err3 <= TOL_K3["int8"] * peak:
                 raise AssertionError(f"K3 disagrees with its plain version: {name}, stage {i}")
             if not err5 <= TOL_K5:
                 raise AssertionError(f"K5 disagrees with its plain version: {name}, stage {i}")
-            for k, err in (("k2", err2), ("k3", err3), ("k5", err5)):
+            for k, err in (("k2", err2), ("k3", err3), ("k4", err4), ("k5", err5)):
                 rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err)
 
 
 WRAPPERS = {"k1": flash_rel_attention, "k2": hifigan_stage, "k3": quantized_stage,
-            "k5": alias_free_snake}
+            "k4": imcol_stage, "k5": alias_free_snake}
 
 
 def drive(name, fn, expect, launches, waves_of=lambda out: [out], frame=384):
@@ -416,15 +521,16 @@ def check_length(wave, dur):
 
 def phase_main(iface, launches, per_call, label):
     """``__call__`` (first, steady, profiled), explicit durations and
-    ``synthesize_batch``; ``per_call`` the launches of one synthesis."""
+    ``synthesize_batch``; ``per_call`` the launches of one synthesis.
+    Returns the steady call's wave."""
     n = len(iface.text2phone.string_to_features(LONG_TEXT))
     log("main", f"{label}: text of {n} phones -> bucket {-(-n // 32) * 32}, "
                 f"{-(-n // 32) * 32 * 16} frames")
     for name in ("call (first)", "call"):
-        wave, dur, _, _ = drive(f"{label} {name}",
-                                lambda: iface(LONG_TEXT, return_duration_pitch_energy=True),
-                                per_synthesis(1, **per_call), launches, lambda out: out[:1])
-        check_length(wave, dur)
+        steady, dur, _, _ = drive(f"{label} {name}",
+                                  lambda: iface(LONG_TEXT, return_duration_pitch_energy=True),
+                                  per_synthesis(1, **per_call), launches, lambda out: out[:1])
+        check_length(steady, dur)
     profiled_call(iface, launches, per_call, label)
     wave, dur, _, _ = drive(f"{label} call, 8 frames per phone",
                             lambda: iface(LONG_TEXT, durations=np.full(n, 8),
@@ -434,7 +540,7 @@ def phase_main(iface, launches, per_call, label):
     log("main", f"{label} explicit durations: {len(wave) // 384} frames")
     drive(f"{label} synthesize_batch x4", lambda: iface.synthesize_batch(BATCH_TEXTS),
           per_synthesis(1, **per_call), launches, list)
-    return n
+    return steady
 
 
 def profiled_call(iface, launches, per_call, label):
@@ -448,13 +554,15 @@ def profiled_call(iface, launches, per_call, label):
 
 
 def phase_main_hifigan(iface, launches):
-    phase_main(iface, launches, dict(k1=12, k2=4), "hifigan")
+    """Returns the steady call's wave."""
+    wave = phase_main(iface, launches, dict(k1=12, k2=4), "hifigan")
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "out.wav")
         # the file joins the waves with silences of 10600 samples
         drive("hifigan read_to_file x2", lambda: iface.read_to_file(BATCH_TEXTS[:2], path),
               per_synthesis(2, k1=12, k2=4), launches, frame=1)
         log("main", f"read_to_file wrote {os.path.getsize(path)} bytes")
+    return wave
 
 
 def phase_main_int8(iface, launches):
@@ -487,6 +595,56 @@ def phase_main_int8(iface, launches):
     return scales
 
 
+def write_reference_files(tmp, tts_sd, voc_sd, gst_sd, default_emb):
+    """The seeded weights as the reference release stores them: weight norm
+    split on the Glow's WaveNet convs and on every vocoder conv."""
+    paths = [os.path.join(tmp, name) for name in ("best.pt", "vocoder.pt", "embedding_function.pt")]
+    torch.save({"model": split_weight_norm(tts_sd, GLOW_WEIGHT_NORM), "default_emb": default_emb},
+               paths[0])
+    torch.save({"generator": split_weight_norm(voc_sd, r".")}, paths[1])
+    torch.save({"style_emb_func": gst_sd}, paths[2])
+    return paths
+
+
+def imcol_interface(paths, device=None):
+    return interface_from_torch(*paths, vocoder_kind=HiFiGANGenerator(imcol_mode="int8"),
+                                device=device, seed=SEED)
+
+
+def phase_main_imcol(paths, ref_wave, launches):
+    """Reference files -> interface with the int8 im2col vocoder -> the
+    speaker from a 24 kHz wave -> the main path; the int8 wave against the
+    exact (K2) wave of the same call and noise."""
+    iface = imcol_interface(paths)
+    for name in ("first", "steady"):
+        drive(f"imcol set_utterance_embedding ({name}; 24 kHz wave, mel and GST on the card)",
+              lambda: iface.set_utterance_embedding(wave=ref_wave, sr=24000), {}, launches,
+              lambda out: [])
+    emb = iface.default_utterance_embedding
+    log("main", f"imcol: embedding of a {len(ref_wave) / 24000:.3f} s wave, shape {emb.shape}, "
+                f"norm {np.linalg.norm(emb):.4f}")
+    per_call = dict(k1=12, k2=1, k4=3)
+    phase_main(iface, launches, per_call, "imcol")
+    n = len(iface.text2phone.string_to_features(LONG_TEXT))
+    z = (0.8 * np.random.RandomState(SEED + 1).randn(-(-n // 32) * 32 * 16, 80)).astype(np.float32)
+    iface.vocoder.imcol_mode = None
+    exact = drive("imcol path: exact call (imcol_mode None), fixed noise",
+                  lambda: iface(LONG_TEXT, glow_noise=z), per_synthesis(1, k1=12, k2=4), launches)
+    iface.vocoder.imcol_mode = "int8"
+    wave = drive("imcol int8 call, fixed noise", lambda: iface(LONG_TEXT, glow_noise=z),
+                 per_synthesis(1, **per_call), launches)
+    if wave.shape != exact.shape:
+        raise AssertionError(f"imcol wave of {wave.shape} against exact {exact.shape}")
+    err, peak = float(np.abs(wave - exact).max()), float(np.abs(exact).max())
+    snr = 10 * np.log10((exact ** 2).mean() / max(((wave - exact) ** 2).mean(), 1e-30))
+    log("main", f"imcol int8 against exact wave: max_abs_err={err:.3e} "
+                f"(bound {TOL_INT8_WAVE} x peak {peak:.3e}), SNR {snr:.1f} dB "
+                f"(bound {INT8_SNR_DB} dB)")
+    if not (peak > 0 and err <= TOL_INT8_WAVE * peak and snr > INT8_SNR_DB):
+        raise AssertionError("the imcol int8 wave is too far from the exact one")
+    return iface
+
+
 def report_profile(prof, wall_us, label):
     """Device time by kernel and the device's busy share of one __call__."""
     kernels = [e for e in prof.key_averages()
@@ -500,7 +658,7 @@ def report_profile(prof, wall_us, label):
                    f"({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         name = e.key
-        for short in ("flash_rel_kernel", "stage_q_kernel", "stage_kernel",
+        for short in ("flash_rel_kernel", "stage_q_kernel", "imcol_kernel", "stage_kernel",
                       "alias_free_snake_kernel"):
             if short in name:
                 name = f"{short} (port kernel)"
@@ -574,12 +732,13 @@ def main():
     big_sd = {k: v.clone() for k, v in bigvgan.state_dict().items()}
     k2, k2_stage_ms = phase_k2(dev, gen, vocoder.to(dev).eval())
     k5 = phase_k5(dev, gen)
-    k3 = phase_k3(dev, gen, vocoder, k2_stage_ms)
-    phase_shapes(dev, gen, vocoder, dict(k1=k1, k2=k2, k3=k3, k5=k5))
+    k3, k3_stage_ms = phase_k3(dev, gen, vocoder, k2_stage_ms)
+    k4 = phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms)
+    phase_shapes(dev, gen, vocoder, dict(k1=k1, k2=k2, k3=k3, k4=k4, k5=k5))
 
     launches = dict.fromkeys(WRAPPERS, 0)
     iface = ToucanTTSInterface(tts_sd, voc_sd, seed=SEED)
-    phase_main_hifigan(iface, launches)
+    ref_wave = phase_main_hifigan(iface, launches)
     phase_ref("hifigan", iface, ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED),
               TOL_REF)
     big = ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan", seed=SEED)
@@ -591,6 +750,23 @@ def main():
     cpu_int8 = ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED)
     cpu_int8.quantize_vocoder(act_scales={i: v.cpu() for i, v in scales.items()})
     phase_ref("int8 hifigan", iface, cpu_int8, TOL_REF_INT8, relative=True)
+    del iface, cpu_int8
+
+    torch.manual_seed(SEED)
+    gst_sd = StyleEmbedding().state_dict()
+    default_emb = torch.from_numpy(np.random.RandomState(SEED + 2).randn(64).astype(np.float32))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_reference_files(tmp, tts_sd, voc_sd, gst_sd, default_emb)
+        imcol = phase_main_imcol(paths, ref_wave, launches)
+        cpu_imcol = imcol_interface(paths, device="cpu")
+    cpu_imcol.set_utterance_embedding(wave=ref_wave, sr=24000)
+    emb_err = float(np.abs(imcol.default_utterance_embedding
+                           - cpu_imcol.default_utterance_embedding).max())
+    log("ref", f"imcol: embedding of the same wave, card against CPU: max_abs_err={emb_err:.3e} "
+               f"(tolerance {TOL_EMB})")
+    if not emb_err <= TOL_EMB:
+        raise AssertionError("the GST embedding on the card disagrees with the CPU's")
+    phase_ref("imcol int8 hifigan", imcol, cpu_imcol, TOL_REF_INT8, relative=True)
 
     kernels = [
         dict(name="flash_rel_attention", route="cuda",
@@ -605,6 +781,10 @@ def main():
              source="toucan_tpu_torch/csrc/hifigan_stage_q.cu",
              replaces="toucan_tpu/kernels/pallas_stage.py:259", launches=launches["k3"],
              **k3),
+        dict(name="hifigan_imcol", route="cuda",
+             source="toucan_tpu_torch/csrc/hifigan_imcol.cu",
+             replaces="toucan_tpu/kernels/pallas_imcol.py:244", launches=launches["k4"],
+             **k4),
         dict(name="alias_free_snake", route="cuda",
              source="toucan_tpu_torch/csrc/alias_free_snake.cu",
              replaces="toucan_tpu/kernels/pallas_aliasfree.py:117", launches=launches["k5"],

@@ -2,9 +2,10 @@
 
 Counterpart of ``toucan_tpu/infer/interface.py`` (reference
 ``InferenceInterfaces/ToucanTTSInterface.py``): language/accent setters,
-the utterance embedding, the prosody-control knobs, per-phone prosody
-overrides, batched synthesis, ``read_to_file``, the HiFiGAN or BigVGAN
-vocoder and ``quantize_vocoder`` (int8 HiFiGAN stages).  Inputs are padded to
+the utterance embedding (given, or from reference audio through the GST),
+the prosody-control knobs, per-phone prosody overrides, batched synthesis,
+``read_to_file``, ``read_aloud``, the HiFiGAN or BigVGAN vocoder and
+``quantize_vocoder`` (int8 HiFiGAN stages).  Inputs are padded to
 the same buckets as the JAX interface (32 phones, 16 frames per phone,
 64 vocoder frames), so both compute on the same shapes.  Text to wave runs
 on the device without a host round trip; frames past each mel length are
@@ -22,7 +23,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from toucan_tpu_torch.frontend.audio import AudioPreprocessor, read_wav
 from toucan_tpu_torch.frontend.text import TextFrontend, language_id
+from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator, calibrate_act_scales
@@ -44,11 +47,13 @@ class ToucanTTSInterface:
     def __init__(self, tts_state_dict, vocoder_state_dict,
                  config: Optional[ToucanTTSConfig] = None,
                  vocoder: Union[str, nn.Module] = "hifigan", default_embedding=None,
-                 language: str = "en", use_g2p: bool = True, seed: int = 0, device=None):
+                 language: str = "en", use_g2p: bool = True, seed: int = 0, device=None,
+                 gst_state_dict=None):
         """``vocoder`` is "hifigan" (``HiFiGANGenerator()``), "bigvgan"
         (``BigVGAN()``) or a vocoder module of the checkpoint's widths; the
-        state dicts are loaded into the models.  ``device`` defaults to the
-        card; pass "cpu" for the CPU."""
+        state dicts are loaded into the models.  ``gst_state_dict``: the
+        StyleEmbedding's, needed by ``set_utterance_embedding`` from audio.
+        ``device`` defaults to the card; pass "cpu" for the CPU."""
         self.device = resolve_device(device)
         self.config = config or ToucanTTSConfig()
         self.model = ToucanTTS(self.config)
@@ -62,6 +67,11 @@ class ToucanTTSInterface:
         self.vocoder = vocoder
         self.vocoder.load_state_dict(vocoder_state_dict)
         self.vocoder.to(self.device).eval()
+        self.gst = None
+        if gst_state_dict is not None:
+            self.gst = StyleEmbedding()
+            self.gst.load_state_dict(gst_state_dict)
+            self.gst.to(self.device).eval()
         self.use_g2p = use_g2p
         self._frontends = {}
         self.set_language(language)
@@ -85,8 +95,24 @@ class ToucanTTSInterface:
     def set_accent_language(self, lang: str):
         self.lang_id = language_id(lang) if self.config.lang_embs is not None else None
 
-    def set_utterance_embedding(self, embedding):
-        self.default_utterance_embedding = np.asarray(embedding, np.float32).reshape(-1)
+    def set_utterance_embedding(self, path_to_reference_audio: str = "", embedding=None,
+                                wave=None, sr: int = 16000):
+        """Set the speaker: an ``embedding`` as given, or the GST embedding of
+        reference audio, a ``wave`` at ``sr`` or a PCM WAV file at
+        ``path_to_reference_audio``.  The audio is loudness-normalized,
+        resampled to 16 kHz and trimmed on the host; its mel and the GST run
+        on the interface's device."""
+        if embedding is not None:
+            self.default_utterance_embedding = np.asarray(embedding, np.float32).reshape(-1)
+            return
+        if self.gst is None:
+            raise ValueError("an embedding from audio needs the interface's gst_state_dict")
+        if wave is None:
+            wave, sr = read_wav(path_to_reference_audio)
+        pre = AudioPreprocessor(input_sr=sr, output_sr=16000, cut_silence=True)
+        spec = pre.audio_to_mel_spec_tensor(wave, device=self.device).T
+        emb = self.gst(spec[None], [len(spec)])
+        self.default_utterance_embedding = emb[0].cpu().numpy()
 
     def quantize_vocoder(self, calibration_mel=None, calibration_text=None, act_scales=None):
         """Switch the HiFiGAN vocoder to int8 stages (K3) with activation
@@ -240,11 +266,12 @@ class ToucanTTSInterface:
     def synthesize_batch(self, texts, input_is_phones=False, languages=None,
                          utterance_embeddings=None, duration_scaling_factor=1.0,
                          pitch_variance_scale=1.0, energy_variance_scale=1.0,
-                         pause_duration_scaling_factor=1.0):
+                         pause_duration_scaling_factor=1.0, return_pcm16=False):
         """One device run over a batch of texts; returns a list of 24 kHz
         waves.  ``languages``: optional per-text language codes;
         ``utterance_embeddings``: optional (B, E).  Conv masking makes each
-        row equal its exact-length single run."""
+        row equal its exact-length single run.  ``return_pcm16``: int16
+        waves, converted on the device (a quarter of the bytes to fetch)."""
         b = len(texts)
         langs = languages if languages is not None else [None] * b
         frontends = [self.text2phone if lg is None else self._frontend(lg) for lg in langs]
@@ -269,6 +296,8 @@ class ToucanTTSInterface:
         waves, _, _, _, _, lens = self._e2e(
             self._tensor(text_arr), self._tensor(lengths, torch.int64), max_frames, utt, lang,
             self._noise(b, max_frames), knobs)
+        if return_pcm16:
+            waves = torch.round(waves.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
         waves, lens = waves.cpu().numpy(), lens.cpu().numpy()
         return [waves[i, :int(lens[i]) * SAMPLES_PER_FRAME] for i in range(b)]
 
@@ -276,9 +305,11 @@ class ToucanTTSInterface:
 
     def read_to_file(self, text_list, file_location, duration_scaling_factor=1.0,
                      pitch_variance_scale=1.0, energy_variance_scale=1.0, silent=True,
-                     dur_list=None, pitch_list=None, energy_list=None, input_is_phones=False):
+                     dur_list=None, pitch_list=None, energy_list=None,
+                     increased_compatibility_mode=False, input_is_phones=False):
         """Synthesize each text, join them with silence, write a 24 kHz PCM16
-        wav.  Returns the samples."""
+        wav (``increased_compatibility_mode``: each sample twice, 48 kHz).
+        Returns the samples (int16 in the compatibility mode)."""
         silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
         pieces = [silence]
         for text, durations, pitch, energy in itertools.zip_longest(
@@ -292,9 +323,39 @@ class ToucanTTSInterface:
                             energy_variance_scale=energy_variance_scale,
                             durations=durations, pitch=pitch, energy=energy,
                             input_is_phones=input_is_phones), silence]
-        wav = np.concatenate(pieces)
-        write_wav(file_location, wav, 24000)
+        wav, sr = _compatible(np.concatenate(pieces), increased_compatibility_mode)
+        write_wav(file_location, wav, sr)
         return wav
+
+    def read_aloud(self, text, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
+                   energy_variance_scale=1.0, blocking=False, increased_compatibility_mode=False,
+                   input_is_phones=False, _player=None):
+        """Synthesize and play through the host's audio device (reference
+        ``ToucanTTSInterface.py:287-296``) with half a second of trailing
+        silence; ``blocking`` waits for the end.  ``_player`` stands in for
+        the ``sounddevice`` module (tests, hosts without audio)."""
+        if not text or text.strip() == "":
+            return None
+        player = _player
+        if player is None:
+            import sounddevice as player  # host audio is optional
+        wav = self(text, duration_scaling_factor=duration_scaling_factor,
+                   pitch_variance_scale=pitch_variance_scale,
+                   energy_variance_scale=energy_variance_scale, input_is_phones=input_is_phones)
+        wav, sr = _compatible(np.concatenate([wav, np.zeros(12000, np.float32)]),
+                              increased_compatibility_mode)
+        player.play(wav, samplerate=sr)
+        if blocking:
+            player.wait()
+        return wav
+
+
+def _compatible(wav, increased_compatibility_mode):
+    """(samples, rate): 24 kHz as they are, or every sample twice at 48 kHz
+    as PCM16 for devices that want it."""
+    if not increased_compatibility_mode:
+        return wav, 24000
+    return (np.clip(np.repeat(wav, 2), -1, 1) * 32767).astype(np.int16), 48000
 
 
 def write_wav(path, data, sr):

@@ -38,7 +38,7 @@ from toucan_tpu_torch.kernels.resstack import StageWeights, stage_halo
 
 MODES = ("int8", "bf16")
 _MODE_ID = {"int8": 0, "bf16": 1}
-_EPW = {"int8": 4, "bf16": 2}     # elements per 32-bit word of packed weights
+EPW = {"int8": 4, "bf16": 2}      # elements per 32-bit word of packed weights
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use (H100)
 _KW = 8                      # 32-bit words of input channels staged per step
 
@@ -68,24 +68,44 @@ class QuantizedStage:
 
     def conv_weights(self):
         """(weight (C_out, C_in, k) as float32 values, dilation) per conv."""
-        c, off = self.channels, 0
-        for k in self.kernel_sizes:
-            for d in self.dilations:
-                for dd in (d, 1):
-                    n, e = k * c * c, _EPW[self.mode]
-                    w = self.w[off:off + n].view(k, c // e, c, e).permute(0, 1, 3, 2)
-                    yield w.reshape(k, c, c).permute(2, 1, 0).float(), dd
-                    off += n
+        return unpack_words(self.w, self.mode, self.channels, self.kernel_sizes, self.dilations)
 
 
-def _quantize_weight(w: torch.Tensor):
-    """(C_out, C_in, k) f32 -> int8 with per-output-channel scales (C_out,)."""
+def unpack_words(w: torch.Tensor, mode: str, c: int, kernel_sizes, dilations):
+    """(weight (C_out, C_in, k) as float32 values, dilation) per conv of a
+    stage's flat packed weights (see ``pack_words``), in packed order."""
+    off = 0
+    for k in kernel_sizes:
+        for d in dilations:
+            for dd in (d, 1):
+                n, e = k * c * c, EPW[mode]
+                wk = w[off:off + n].view(k, c // e, c, e).permute(0, 1, 3, 2)
+                yield wk.reshape(k, c, c).permute(2, 1, 0).float(), dd
+                off += n
+
+
+def ieee_div(num, den) -> torch.Tensor:
+    """num / den with IEEE rounding, as JAX and the kernels divide, on any
+    device.  PyTorch computes ``number / tensor`` as ``reciprocal(tensor) *
+    number``, and on CUDA ``tensor / number`` as a product with the number's
+    reciprocal; a tensor divided by a tensor is one correctly rounded
+    division."""
+    like = num if torch.is_tensor(num) else den
+    num, den = (torch.as_tensor(v, dtype=like.dtype, device=like.device).expand_as(like)
+                for v in (num, den))
+    return num / den
+
+
+def quantize_weight(w: torch.Tensor):
+    """(C_out, C_in, k) f32 -> int8 with per-output-channel scales (C_out,):
+    scale = absmax / 127 and round(w / scale), both IEEE divisions, so the
+    card quantizes as the CPU and JAX do."""
     absmax = w.abs().amax(dim=(1, 2)).clamp_min(1e-12)
-    scale = absmax / 127.0
+    scale = ieee_div(absmax, 127.0)
     return torch.clamp(torch.round(w / scale[:, None, None]), -127, 127).to(torch.int8), scale
 
 
-def _pack(w: torch.Tensor, e: int) -> torch.Tensor:
+def pack_words(w: torch.Tensor, e: int) -> torch.Tensor:
     """(C_out, C_in, k) -> flat (k, C_in/e, C_out, e)."""
     c_out, c_in, k = w.shape
     return w.permute(2, 1, 0).reshape(k, c_in // e, e, c_out).permute(0, 1, 3, 2).reshape(-1)
@@ -95,7 +115,7 @@ def quantize_stage(sw: StageWeights, mode: str,
                    act_scales: Optional[torch.Tensor] = None) -> QuantizedStage:
     """Quantize a stage's weights for ``mode``; int8 needs ``act_scales``
     (18,) from ``calibrate_stage_scales``.  Factors are computed in f32 in
-    the JAX kernel's order."""
+    the JAX kernel's order, with IEEE divisions (``ieee_div``)."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if mode == "int8" and act_scales is None:
@@ -108,14 +128,14 @@ def quantize_stage(sw: StageWeights, mode: str,
         (w1, b1, _), (w2, b2, _) = convs[n], convs[n + 1]
         if mode == "int8":
             a1, a2 = act_scales[n].float(), act_scales[n + 1].float()
-            w81, cs1 = _quantize_weight(w1)
-            w82, cs2 = _quantize_weight(w2)
-            ws += [_pack(w81, 4), _pack(w82, 4)]
-            qin += [127.0 / a1, torch.ones((), device=a1.device)]
-            deq += [cs1 * a1 / 127.0 * (127.0 / a2), cs2 * a2 / 127.0]
-            bias += [b1 * (127.0 / a2), b2]
+            w81, cs1 = quantize_weight(w1)
+            w82, cs2 = quantize_weight(w2)
+            ws += [pack_words(w81, 4), pack_words(w82, 4)]
+            qin += [ieee_div(127.0, a1), torch.ones((), device=a1.device)]
+            deq += [ieee_div(cs1 * a1, 127.0) * ieee_div(127.0, a2), ieee_div(cs2 * a2, 127.0)]
+            bias += [b1 * ieee_div(127.0, a2), b2]
         else:
-            ws += [_pack(w.to(torch.bfloat16), 2) for w in (w1, w2)]
+            ws += [pack_words(w.to(torch.bfloat16), 2) for w in (w1, w2)]
             qin += [ones[0], ones[0]]
             deq += [ones, ones]
             bias += [b1, b2]
@@ -187,7 +207,7 @@ def quantized_stage_plain(x: torch.Tensor, qs: QuantizedStage) -> torch.Tensor:
 def _smem_bytes(mode: str, c: int, tile: int, halo: int, k_max: int) -> int:
     """The kernel's dynamic shared memory: two quantized (tile + 2 halo) x C
     operand tiles (rows padded by one word) and one step of staged weights."""
-    words_per_row = c // _EPW[mode] + 1
+    words_per_row = c // EPW[mode] + 1
     cot = 64 if c % 64 == 0 else 32
     return 4 * (2 * (tile + 2 * halo) * words_per_row + k_max * _KW * cot)
 

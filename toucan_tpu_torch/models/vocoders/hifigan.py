@@ -12,16 +12,25 @@ runs ``kernels/stage.py::quantized_stage`` (K3) instead; int8 takes
 per-stage activation scales from ``calibrate_act_scales``.  The JAX package
 picks the stages its stage kernel may run by their folded width; without
 folding every stage of the port is eligible, so it has no ``stage_indices``.
+With ``imcol_mode="int8"`` or ``"bf16"`` (and ``stage_mode="f32"``) the
+stages in ``imcol_stages`` with at most 128 channels run
+``kernels/imcol.py::imcol_stage`` (K4), whose int8 scales are dynamic per
+window; ``imcol_mode="f32"`` is the exact stage, K2.  ``imcol_dense`` is
+taken for parity with the JAX generator and changes nothing in the port: it
+selects the JAX kernel's dense folded weights, which give the same int8
+values and exact integer sums, so both compute the port's one stage.
 Parameter names are the reference's state-dict keys with weight norm folded.  The Avocodo taps
 ``out_proj_x1``/``out_proj_x2`` are kept as parameters for the training
 slice; inference does not run them.
 """
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
 
+from toucan_tpu_torch.kernels.imcol import (ImcolStage, imcol_fold, imcol_stage,
+                                            prepare_imcol_stage)
 from toucan_tpu_torch.kernels.resstack import StageWeights, hifigan_stage, pack_stage
 from toucan_tpu_torch.kernels.stage import (MODES, QuantizedStage, calibrate_stage_scales,
                                             quantize_stage, quantized_stage)
@@ -47,11 +56,17 @@ class HiFiGANGenerator(nn.Module):
                  upsample_kernel_sizes: Tuple[int, ...] = (16, 12, 8, 4),
                  resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11),
                  resblock_dilations: Tuple[int, ...] = (1, 3, 5), slope: float = 0.1,
-                 stage_mode: str = "f32"):
+                 stage_mode: str = "f32", imcol_mode: Optional[str] = None,
+                 imcol_stages: Tuple[int, ...] = (1, 2, 3), imcol_dense: bool = False):
         super().__init__()
         if stage_mode not in ("f32",) + MODES:
             raise ValueError(f"stage_mode must be 'f32', 'int8' or 'bf16', got {stage_mode!r}")
+        if imcol_mode not in (None, "f32") + MODES:
+            raise ValueError(f"imcol_mode must be None, 'f32', 'int8' or 'bf16', "
+                             f"got {imcol_mode!r}")
         self.stage_mode = stage_mode
+        self.imcol_mode = imcol_mode
+        self.imcol_stages = tuple(imcol_stages)
         self.slope = slope
         self.resblock_kernel_sizes = tuple(resblock_kernel_sizes)
         self.resblock_dilations = tuple(resblock_dilations)
@@ -76,6 +91,7 @@ class HiFiGANGenerator(nn.Module):
                 nn.init.normal_(m.weight, 0.0, 0.01)
         self._packed = {}
         self._quantized = {}
+        self._imcol = {}
 
     def stage_weights(self, i: int) -> StageWeights:
         """Stage i's 18 convs packed for the kernel, rebuilt only when the
@@ -106,6 +122,23 @@ class HiFiGANGenerator(nn.Module):
             self._quantized[i] = hit
         return hit[4]
 
+    def imcol_stage_weights(self, i: int) -> ImcolStage:
+        """Stage i prepared for ``imcol_mode``, rebuilt only when the packed
+        weights or the mode change."""
+        sw = self.stage_weights(i)
+        hit = self._imcol.get(i)
+        if hit is None or hit[0] is not sw or hit[1] != self.imcol_mode:
+            hit = (sw, self.imcol_mode, prepare_imcol_stage(sw, self.imcol_mode))
+            self._imcol[i] = hit
+        return hit[2]
+
+    def runs_imcol(self, i: int) -> bool:
+        """Whether stage i runs K4 when ``stage_mode`` does not take it: the
+        JAX generator's rule, ``imcol_mode`` set, at most 128 channels and
+        i in ``imcol_stages`` (the f32 mode is the exact stage, K2)."""
+        return (self.imcol_mode in MODES and i in self.imcol_stages
+                and self.upsamples[i][1].out_channels <= 128)
+
     @torch.no_grad()
     def forward(self, c, act_scales=None):
         """c (B, T, 80) -> wave (B, 384*T, 1).  ``act_scales``: {stage: (18,)}
@@ -114,7 +147,9 @@ class HiFiGANGenerator(nn.Module):
 
     def _run(self, c, act_scales=None, stage_inputs=None):
         """The generator; with a list ``stage_inputs`` it records each
-        stage's (B, T, C) input and runs every stage exactly (K2)."""
+        stage's (B, T, C) input and runs the stages as the JAX calibration
+        pass does, ``stage_mode`` aside: K4 where ``imcol_mode`` takes the
+        stage, K2 elsewhere."""
         x = self.input_conv(c.transpose(1, 2))
         for i, up in enumerate(self.upsamples):
             x = up(x).transpose(1, 2).contiguous()
@@ -123,6 +158,8 @@ class HiFiGANGenerator(nn.Module):
             if stage_inputs is None and self.stage_mode in MODES:
                 scales = None if act_scales is None else act_scales[i]
                 x = quantized_stage(x, self.quantized_stage_weights(i, scales))
+            elif self.runs_imcol(i):
+                x = imcol_stage(x, self.imcol_stage_weights(i), imcol_fold(x.shape[-1]))
             else:
                 x = hifigan_stage(x, self.stage_weights(i))
             x = x.transpose(1, 2)
@@ -133,8 +170,9 @@ class HiFiGANGenerator(nn.Module):
 def calibrate_act_scales(model: HiFiGANGenerator, mel: torch.Tensor) -> dict:
     """Per-stage activation scales for ``stage_mode="int8"``.
 
-    Runs the exact generator (K2 at every stage, whatever ``stage_mode``)
-    once on a representative mel (B, T, 80), records each stage's input and
+    Runs the generator once on a representative mel (B, T, 80) as the JAX
+    package's capture does (``stage_mode`` off: K2, or K4 at the stages
+    ``imcol_mode`` takes), records each stage's input and
     computes its per-conv max activations
     (``kernels/stage.py::calibrate_stage_scales``).  Returns
     ``{stage: (18,) f32}`` on the model's device, to pass as ``act_scales``.

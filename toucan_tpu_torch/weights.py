@@ -4,8 +4,8 @@ The JAX package keeps its weights as nested dicts (``params``,
 ``batch_stats``, ``buffers``); these functions take such dicts of numpy
 arrays and return the port's ``state_dict``, whose keys are the reference
 IMS-Toucan ones.  They invert ``toucan_tpu/compat/torch_toucan.py::
-convert_toucan_tts`` and ``compat/torch_vocoder.py::convert_hifigan`` /
-``convert_bigvgan``:
+convert_toucan_tts``, ``compat/torch_vocoder.py::convert_hifigan`` /
+``convert_bigvgan`` and ``compat/torch_gst.py::convert_style_embedding``:
 only layouts change (flax (k, in, out) conv kernels and (in, out) dense
 kernels become torch (out, in, k) and (out, in)), never values.  No JAX
 is needed to call them.
@@ -206,4 +206,35 @@ def bigvgan_from_jax(variables) -> dict:
     w.sd["activation_post.act.beta"] = _t(p["post_beta"])
     w.conv("conv_post", p["conv_post"])
     _avocodo_taps(w, p, "up_{}_bias")
+    return w.sd
+
+
+def style_embedding_from_jax(variables) -> dict:
+    """JAX StyleEmbedding variables -> the port's StyleEmbedding state dict.
+
+    Inverts ``compat/torch_gst.py::convert_style_embedding``: flax (kh, kw,
+    in, out) Conv2d kernels become torch (out, in, kh, kw), the GRU's (in,
+    3H) kernels its (3H, in) weights, BatchNorm statistics its running
+    buffers.
+    """
+    p, stats = variables["params"]["ref_enc"], variables["batch_stats"]["ref_enc"]
+    w = _Writer()
+    for i in range(_count(p, "conv_")):
+        conv, bn = f"gst.ref_enc.convs.{3 * i}", f"gst.ref_enc.convs.{3 * i + 1}"
+        w.sd[f"{conv}.weight"] = _t(np.transpose(np.asarray(p[f"conv_{i}"]["kernel"]), (3, 2, 0, 1)))
+        w.norm(bn, p[f"bn_{i}"])
+        w.sd[f"{bn}.running_mean"] = _t(stats[f"bn_{i}"]["mean"])
+        w.sd[f"{bn}.running_var"] = _t(stats[f"bn_{i}"]["var"])
+        w.sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+    gru = p["gru"]
+    for layer in range(_count(gru, "w_ih_")):
+        base = "gst.ref_enc.gst"
+        w.sd[f"{base}.weight_ih_l{layer}"] = _t(np.asarray(gru[f"w_ih_{layer}"]["kernel"]).T)
+        w.sd[f"{base}.weight_hh_l{layer}"] = _t(np.asarray(gru[f"w_hh_{layer}_kernel"]).T)
+        w.sd[f"{base}.bias_ih_l{layer}"] = _t(gru[f"w_ih_{layer}"]["bias"])
+        w.sd[f"{base}.bias_hh_l{layer}"] = _t(gru[f"w_hh_{layer}_bias"])
+    stl = variables["params"]["stl"]
+    w.sd["gst.stl.gst_embs"] = _t(stl["gst_embs"])
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        w.linear(f"gst.stl.mha.{name}", stl[name])
     return w.sd
