@@ -9,12 +9,17 @@ Phases, each reported on its own lines:
 
 1. build: nvcc compiles every kernel of the port for sm_90a, one process
    per source, all at once, and prints ptxas's registers / shared memory /
-   spills;
+   spills, and the count of tensor-core instructions (HMMA, HGMMA) in the
+   SASS of K1 and K2, which must not be 0;
 2. k1: the rel-pos flash attention kernel against its plain PyTorch version
-   at B=2, H=4, d=48, T in (128, 2048), with its time, the plain version's
-   and that of ``scaled_dot_product_attention`` on a materialised bias;
+   at B=2, H=4, d=48, T in (128, 2048), and at the main path's encoder
+   (B=1, T=128) and decoder (B=1, T=2048, 110 and 2048 valid keys), with
+   its time, the plain version's, that of ``scaled_dot_product_attention``
+   on a materialised bias, and its bounds (split TF32 and f32);
 3. k2: the fused HiFiGAN stage kernel against its plain version at the four
-   stage shapes of 512 mel frames;
+   stage shapes of 512 and of 2048 mel frames, with the tile and cluster
+   each launch took, on HiFiGAN's weights and on weights at unit gain
+   (where only an f32-accurate product meets K2's tolerance);
 4. k5: the alias-free SnakeBeta kernel against its plain version at
    BigVGAN's four stage shapes of 512 mel frames (and T = 8 for the edges);
 5. k3: the quantized HiFiGAN stage kernel, int8 and bf16, against its plain
@@ -23,8 +28,9 @@ Phases, each reported on its own lines:
 6. k4: the im2col HiFiGAN stage kernel, int8 and bf16, against its plain
    versions at the shapes of stages 1-3 at 512 mel frames, with K2's and
    K3 int8's times on the same stage beside it;
-7. shapes: K1, K2, K3 (int8), K4 (int8, stages 1-3) and K5 against their
-   plain versions at the shapes the main path gives them: batch size,
+7. shapes: K1, K2 (also at unit gain), K3 (int8), K4 (int8, stages 1-3)
+   and K5 against their plain versions at the shapes the main path gives
+   them: batch size,
    sequence lengths and stage lengths of the ``__call__`` on 110 phones
    (2048 vocoder frames), of the call with 8 frames per phone (896) and of
    ``synthesize_batch`` (B = 4);
@@ -50,11 +56,17 @@ Phases, each reported on its own lines:
      synthesis; the int8 wave against the exact one of the same call;
 9. ref: the same weights on the CPU (plain versions) against the card, on a
    short input, for the four paths (imcol: the embedding from the same
-   wave within 1e-4, and the wave within 1 % of its peak).
+   wave within 1e-4, and the wave within 1 % of its peak); and the HiFiGAN
+   call, the BigVGAN call and ``set_utterance_embedding`` once more with
+   PyTorch's default ``cudnn.allow_tf32 = True`` set by the caller, which
+   must give the durations and, within 1e-5, the mel (the wave, the
+   embedding) of the same call with TF32 off, and leave the flags as they
+   were.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
-nonzero.  TF32 is off for matmuls and cuDNN so every f32 path is f32.
+nonzero.  TF32 is off for matmuls and cuDNN, for the plain versions; the
+port's entry points pin f32 themselves.
 """
 
 import dataclasses
@@ -78,7 +90,8 @@ from toucan_tpu_torch.kernels.flash_attention import (flash_rel_attention,
                                                       flash_rel_attention_plain)
 from toucan_tpu_torch.kernels.imcol import (imcol_fold, imcol_stage, imcol_stage_plain,
                                             prepare_imcol_stage)
-from toucan_tpu_torch.kernels.resstack import hifigan_stage, hifigan_stage_plain
+from toucan_tpu_torch.kernels.resstack import (hifigan_stage, hifigan_stage_plain, pack_stage,
+                                               tiling_for)
 from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_stage,
                                             quantized_stage, quantized_stage_plain)
 from toucan_tpu_torch.load import GLOW_WEIGHT_NORM, interface_from_torch, split_weight_norm
@@ -89,6 +102,9 @@ from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 
 SEED = 0
 F32_PEAK = 67e12      # H100 SXM f32 CUDA-core FLOP/s (NVIDIA data sheet)
+# K1 and K2 run their f32 products in split TF32: three TF32 tensor-core
+# products (495 TFLOP/s dense) per f32 product
+SPLIT_TF32_PEAK = 495e12 / 3
 PEAK = {"int8": 1979e12, "bf16": 989e12}  # H100 SXM dense tensor-core rates
 HBM_RATE = 3.35e12    # H100 SXM bytes/s
 TOL_K1 = 2e-5
@@ -121,6 +137,9 @@ K5_LAUNCHES = 73       # 4 stages x 3 AMP blocks x 6 activations + activation_po
 # sums run in other orders (cuDNN, the kernels' tiles) through 12 conformer
 # blocks and 18 glow blocks
 TOL_REF = 1e-3
+# the same f32 call with the caller's cudnn.allow_tf32 on and off: only
+# cuDNN's choice of algorithm may differ
+TOL_TF32_DEFAULT = 1e-5
 K2_FRAMES = 512
 STAGE_SCALES = (8, 48, 192, 384)  # vocoder samples per mel frame after each stage
 LONG_TEXT = ("The quick brown fox jumps over the lazy dog near the river bank, "
@@ -154,6 +173,9 @@ def bound(flops, nbytes, peak=F32_PEAK):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+TENSOR_CORE_KERNELS = ("flash_rel_attention", "hifigan_stage")
+
+
 def phase_build():
     t0 = time.perf_counter()
     logs = build.build(["flash_rel_attention", "hifigan_stage", "alias_free_snake",
@@ -163,6 +185,16 @@ def phase_build():
             if "ptxas info" in line or "spill" in line or "error" in line.lower():
                 log("build", f"{name}: {line.strip()}")
     log("build", f"nvcc built {sorted(logs)} for sm_90a in {time.perf_counter() - t0:.1f} s")
+    cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    for name in TENSOR_CORE_KERNELS:
+        sass = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, check=True).stdout
+        counts = {op: sum(1 for line in sass.splitlines() if f" {op}" in line)
+                  for op in ("HMMA", "HGMMA")}
+        log("build", f"{name}: tensor-core instructions in SASS: "
+                     + ", ".join(f"{op} {n}" for op, n in counts.items()))
+        if not sum(counts.values()):
+            raise AssertionError(f"{name} has no tensor-core instruction in its SASS")
 
 
 def k1_inputs(gen, dev, b, h, d, t, lengths):
@@ -179,11 +211,27 @@ def k1_error(args):
     return (got - want).abs().max().item(), want
 
 
+def k1_shapes():
+    """(label, B, T, lengths) of phase_k1: the two shapes this phase has always timed,
+    then the main path's own (default config, 110 phones): the encoder at
+    the 128-phone bucket, the decoder at the 2048-frame bucket with the 110
+    valid frames random weights give and with every frame valid (trained
+    weights predict several frames per phone)."""
+    _, (n,), bucket, frames, _ = main_path_cases()[0]
+    return [("B=2 T=128", 2, 128, [128, int(0.7 * 128)]),
+            ("B=2 T=2048", 2, 2048, [2048, int(0.7 * 2048)]),
+            ("encoder", 1, bucket, [n]),
+            ("decoder, random weights", 1, frames, [n]),
+            ("decoder, all frames valid", 1, frames, [frames])]
+
+
 def phase_k1(dev, gen):
-    b, h, d = 2, 4, 48
+    """K1 against its plain version, timed beside SDPA and both bounds; the
+    row is the B=2 T=2048 shape's, with the worst error of all."""
+    h, d = 4, 48
     worst, row = 0.0, None
-    for t in (128, 2048):
-        args = k1_inputs(gen, dev, b, h, d, t, [t, int(0.7 * t)])
+    for label, b, t, lengths in k1_shapes():
+        args = k1_inputs(gen, dev, b, h, d, t, lengths)
         q_u, q_v, k, v, p, lens = args
         err, want = k1_error(args)
         worst = max(worst, err)
@@ -198,18 +246,40 @@ def phase_k1(dev, gen):
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_err = (sdpa(q_u, k, v, attn_mask=bias) - want).abs().max().item()
         library_ms = time_ms(lambda: sdpa(q_u, k, v, attn_mask=bias), 20)
+        del bias, rel
         flops = sum(6 * h * d * t * int(n) for n in lens.tolist())
         nbytes = 4 * (5 * b * h * t * d + h * (2 * t - 1) * d + b)
-        bound_ms, bound_by = bound(flops, nbytes)
-        log("k1", f"B={b} H={h} T={t} d={d} lengths={lens.tolist()} max_abs_err={err:.3e} "
-                  f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} "
-                  f"(sdpa err {lib_err:.2e}) bound_ms={bound_ms:.4f} ({bound_by}) "
+        bound_ms, bound_by = bound(flops, nbytes, SPLIT_TF32_PEAK)
+        f32_ms, _ = bound(flops, nbytes)
+        log("k1", f"{label}: B={b} H={h} T={t} d={d} lengths={lens.tolist()} "
+                  f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+                  f"library_ms={library_ms:.4f} (sdpa err {lib_err:.2e}) "
+                  f"bound_ms={bound_ms:.4f} ({bound_by}, split TF32) f32_bound_ms={f32_ms:.4f} "
                   f"gflop={flops / 1e9:.2f} achieved_tflops={flops / ms / 1e9:.2f}")
         if not err <= TOL_K1:
-            raise AssertionError(f"K1 disagrees with its plain version at T={t}: {err:.3e}")
-        row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                   library_ms=library_ms)
+            raise AssertionError(f"K1 disagrees with its plain version: {label}: {err:.3e}")
+        if label == "B=2 T=2048":
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=library_ms)
     return dict(row, max_abs_err=worst)
+
+
+def unit_gain_stages(vocoder, gen):
+    """Per stage, weights of the stage's shape drawn at unit gain (std
+    1/sqrt(k C), biases 0.1): at HiFiGAN's init std of 0.01 the convs hardly
+    move the stream, and a kernel that formed one TF32 product per multiply
+    would pass too (tests/test_torch_kernels.py::
+    test_split_tf32_keeps_f32_accuracy reads single TF32 8.8e-4 over the
+    rtol share at unit gain, tolerance 2e-4)."""
+    stages = []
+    for i in range(len(STAGE_SCALES)):
+        sw = vocoder.stage_weights(i)
+        c, dev = sw.channels, sw.w.device
+        convs = [(torch.randn(c, c, k, generator=gen, device=dev) / math.sqrt(k * c),
+                  0.1 * torch.randn(c, generator=gen, device=dev))
+                 for k in sw.kernel_sizes for _ in range(2 * len(sw.dilations))]
+        stages.append(pack_stage(convs, c, sw.kernel_sizes, sw.dilations, sw.slope))
+    return stages
 
 
 def k2_error(x, sw):
@@ -221,36 +291,58 @@ def k2_error(x, sw):
     return diff.max().item(), (diff - TOL_K2[1] * want.abs()).max().item()
 
 
-def phase_k2(dev, gen, vocoder):
-    frames = K2_FRAMES
-    totals = dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0)
-    worst, stage_ms = 0.0, []
-    for i, scale in enumerate(STAGE_SCALES):
-        sw = vocoder.stage_weights(i)
-        c, t = sw.channels, scale * frames
-        x = torch.randn(1, t, c, generator=gen, device=dev)
-        err, excess = k2_error(x, sw)
-        worst = max(worst, err)
-        ms = time_ms(lambda: hifigan_stage(x, sw), 3)
-        plain_ms = time_ms(lambda: hifigan_stage_plain(x, sw), 3)
-        flops = 252 * t * c * c
-        nbytes = 4 * (2 * t * c + sw.w.numel() + sw.b.numel())
-        bound_ms, bound_by = bound(flops, nbytes)
-        log("k2", f"stage {i}: B=1 T={t} C={c} max_abs_err={err:.3e} kernel_ms={ms:.3f} "
-                  f"plain_ms={plain_ms:.3f} bound_ms={bound_ms:.3f} ({bound_by}) "
-                  f"gflop={flops / 1e9:.1f} achieved_tflops={flops / ms / 1e9:.2f}")
-        if not excess <= TOL_K2[0]:
-            raise AssertionError(f"K2 disagrees with its plain version at stage {i}: {err:.3e}")
-        totals["ms"] += ms
-        totals["plain_ms"] += plain_ms
-        totals["flops"] += flops
-        totals["nbytes"] += nbytes
-        stage_ms.append(ms)
-    bound_ms, bound_by = bound(totals["flops"], totals["nbytes"])
-    log("k2", f"four stages of {frames} frames: kernel_ms={totals['ms']:.3f} "
-              f"plain_ms={totals['plain_ms']:.3f} bound_ms={bound_ms:.3f}")
-    return dict(ms=totals["ms"], plain_ms=totals["plain_ms"], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, max_abs_err=worst), stage_ms
+def phase_k2(dev, gen, vocoder, unit):
+    """K2 against its plain version (18 f32 cuDNN convs) at the four stage
+    shapes of K2_FRAMES and of 2048 frames (the main path's), with the
+    tiling each launch took, on HiFiGAN's weights (timed) and on ``unit``,
+    the stages at unit gain.  The row is K2_FRAMES's totals; its error the
+    worst of both weights."""
+    rows = {}
+    for frames in (K2_FRAMES, 2048):
+        totals = dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0)
+        worst, stage_ms = 0.0, []
+        for i, scale in enumerate(STAGE_SCALES):
+            sw = vocoder.stage_weights(i)
+            c, t = sw.channels, scale * frames
+            x = torch.randn(1, t, c, generator=gen, device=dev)
+            err, excess = k2_error(x, sw)
+            err_u, excess_u = k2_error(x, unit[i])
+            worst = max(worst, err, err_u)
+            ms = time_ms(lambda: hifigan_stage(x, sw), 3)
+            plain_ms = time_ms(lambda: hifigan_stage_plain(x, sw), 3)
+            flops = 252 * t * c * c
+            nbytes = 4 * (2 * t * c + sw.w.numel() + sw.b.numel())
+            bound_ms, bound_by = bound(flops, nbytes, SPLIT_TF32_PEAK)
+            f32_ms, _ = bound(flops, nbytes)
+            tl = tiling_for(x, sw)
+            log("k2", f"{frames} frames, stage {i}: B=1 T={t} C={c} max_abs_err={err:.3e} "
+                      f"(excess {excess:.2e}; unit gain {err_u:.3e}, excess {excess_u:.2e}; "
+                      f"tolerance {TOL_K2[0]} over the rtol share) "
+                      f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
+                      f"bound_ms={bound_ms:.3f} ({bound_by}, split TF32) f32_bound_ms={f32_ms:.3f} "
+                      f"gflop={flops / 1e9:.1f} achieved_tflops={flops / ms / 1e9:.2f} "
+                      f"tile={tl.tile} cluster={tl.cluster} channels_per_block={tl.block_channels} "
+                      f"clusters={tl.clusters} tiles={tl.jobs} "
+                      f"scratch_mb={tl.scratch_bytes(c) / 2**20:.1f}")
+            if not (excess <= TOL_K2[0] and excess_u <= TOL_K2[0]):
+                raise AssertionError(f"K2 disagrees with its plain version at {frames} frames, "
+                                     f"stage {i}: excess {excess:.3e}, unit gain {excess_u:.3e}")
+            del x
+            totals["ms"] += ms
+            totals["plain_ms"] += plain_ms
+            totals["flops"] += flops
+            totals["nbytes"] += nbytes
+            stage_ms.append(ms)
+        bound_ms, bound_by = bound(totals["flops"], totals["nbytes"], SPLIT_TF32_PEAK)
+        f32_ms, _ = bound(totals["flops"], totals["nbytes"])
+        log("k2", f"four stages of {frames} frames: kernel_ms={totals['ms']:.3f} "
+                  f"plain_ms={totals['plain_ms']:.3f} bound_ms={bound_ms:.3f} (split TF32) "
+                  f"f32_bound_ms={f32_ms:.3f}")
+        rows[frames] = (dict(ms=totals["ms"], plain_ms=totals["plain_ms"], bound_ms=bound_ms,
+                             bound_by=bound_by, library_ms=None, max_abs_err=worst), stage_ms)
+    row, stage_ms = rows[K2_FRAMES]
+    row["max_abs_err"] = max(r["max_abs_err"] for r, _ in rows.values())
+    return row, stage_ms
 
 
 def k5_inputs(gen, dev, b, t, c):
@@ -435,10 +527,11 @@ def main_path_cases():
             ("synthesize_batch", batch, b_bucket, b_bucket * FRAMES_PER_PHONE, batch)]
 
 
-def phase_shapes(dev, gen, vocoder, rows):
-    """K1, K2, K3 (int8, scales calibrated on the same input), K4 (int8,
-    stages 1-3) and K5 against their plain versions at the shapes the main
-    path gives them; each error folds into its kernel's row of ``rows``."""
+def phase_shapes(dev, gen, vocoder, unit, rows):
+    """K1, K2 (also on ``unit``, the stages at unit gain), K3 (int8, scales
+    calibrated on the same input), K4 (int8, stages 1-3) and K5 against
+    their plain versions at the shapes the main path gives them; each error
+    folds into its kernel's row of ``rows``."""
     cfg = ToucanTTSConfig()
     h, d = cfg.aheads, cfg.adim // cfg.aheads
     for name, counts, bucket, frames, mel_lens in main_path_cases():
@@ -455,6 +548,7 @@ def phase_shapes(dev, gen, vocoder, rows):
             c, t = sw.channels, scale * frames
             x = torch.randn(b, t, c, generator=gen, device=dev)
             err2, excess = k2_error(x, sw)
+            err2_u, excess_u = k2_error(x, unit[i])
             qs = quantize_stage(sw, "int8", calibrate_stage_scales(x, sw))
             err3, peak, n_diff, n = k3_error(x, qs)
             err4, peak4 = 0.0, 0.0
@@ -465,16 +559,18 @@ def phase_shapes(dev, gen, vocoder, rows):
             del x
             err5 = k5_error(*k5_inputs(gen, dev, b, t, c))
             log("shapes", f"{name}: stage {i} B={b} T={t} C={c} max_abs_err k2={err2:.3e} "
+                          f"(excess {excess:.2e}; unit gain {err2_u:.3e}, "
+                          f"excess {excess_u:.2e}) "
                           f"k3 int8={err3:.3e} (max|out| {peak:.3e}, {n_diff} of {n} differ) "
                           + (f"k4 int8={err4:.3e} (max|out| {peak4:.3e}, {n_diff4} differ) "
                              if i in K4_STAGES else "") + f"k5={err5:.3e}")
-            if not excess <= TOL_K2[0]:
+            if not (excess <= TOL_K2[0] and excess_u <= TOL_K2[0]):
                 raise AssertionError(f"K2 disagrees with its plain version: {name}, stage {i}")
             if not err3 <= TOL_K3["int8"] * peak:
                 raise AssertionError(f"K3 disagrees with its plain version: {name}, stage {i}")
             if not err5 <= TOL_K5:
                 raise AssertionError(f"K5 disagrees with its plain version: {name}, stage {i}")
-            for k, err in (("k2", err2), ("k3", err3), ("k4", err4), ("k5", err5)):
+            for k, err in (("k2", max(err2, err2_u)), ("k3", err3), ("k4", err4), ("k5", err5)):
                 rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err)
 
 
@@ -702,6 +798,47 @@ def phase_ref(label, iface, cpu, tol_wave, relative=False):
         raise AssertionError(f"{label}: the card disagrees with the CPU reference")
 
 
+def phase_tf32_default(iface):
+    """``check_tf32_default`` on the HiFiGAN interface call: its durations
+    and the mel it gives the vocoder."""
+    text = "Hello world, this is a test."
+    z = (0.8 * np.random.RandomState(SEED).randn(512, 80)).astype(np.float32)
+    mels = []
+    hook = iface.vocoder.register_forward_pre_hook(
+        lambda _, args: mels.append(args[0].detach().cpu().numpy()))
+
+    def call():
+        _, dur, _, _ = iface(text, glow_noise=z, return_duration_pitch_energy=True)
+        return np.concatenate([np.ravel(dur).astype(np.float32), mels[-1].ravel()])
+    try:
+        check_tf32_default("hifigan __call__ (durations and mel)", call)
+    finally:
+        hook.remove()
+
+
+def check_tf32_default(label, fn):
+    """fn(), an entry point's output, with the caller's cudnn.allow_tf32
+    off and then on, as PyTorch's default has it: the entry points pin f32,
+    so the two agree within TOL_TF32_DEFAULT (a wave of another length, from
+    other durations, fails), and the caller's flags are as it set them."""
+    outs = []
+    try:
+        for allow in (False, True):
+            torch.backends.cudnn.allow_tf32 = allow
+            outs.append(np.asarray(fn()))
+            flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+            if flags != (allow, False):
+                raise AssertionError(f"{label} left the TF32 flags at {flags}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    a, b = outs
+    err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+    log("ref", f"{label} with cudnn.allow_tf32=True set by the caller against TF32 off: "
+               f"max_abs_err={err:.3e} (tolerance {TOL_TF32_DEFAULT}); caller's flags unchanged")
+    if not err <= TOL_TF32_DEFAULT:
+        raise AssertionError(f"{label} depends on the caller's TF32 setting")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -730,21 +867,27 @@ def main():
     tts_sd = {k: v.clone() for k, v in tts.state_dict().items()}
     voc_sd = {k: v.clone() for k, v in vocoder.state_dict().items()}
     big_sd = {k: v.clone() for k, v in bigvgan.state_dict().items()}
-    k2, k2_stage_ms = phase_k2(dev, gen, vocoder.to(dev).eval())
+    unit = unit_gain_stages(vocoder.to(dev).eval(), gen)
+    k2, k2_stage_ms = phase_k2(dev, gen, vocoder, unit)
     k5 = phase_k5(dev, gen)
     k3, k3_stage_ms = phase_k3(dev, gen, vocoder, k2_stage_ms)
     k4 = phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms)
-    phase_shapes(dev, gen, vocoder, dict(k1=k1, k2=k2, k3=k3, k4=k4, k5=k5))
+    phase_shapes(dev, gen, vocoder, unit, dict(k1=k1, k2=k2, k3=k3, k4=k4, k5=k5))
+    del unit
 
     launches = dict.fromkeys(WRAPPERS, 0)
     iface = ToucanTTSInterface(tts_sd, voc_sd, seed=SEED)
     ref_wave = phase_main_hifigan(iface, launches)
     phase_ref("hifigan", iface, ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED),
               TOL_REF)
+    phase_tf32_default(iface)
     big = ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan", seed=SEED)
     phase_main(big, launches, dict(k1=12, k5=K5_LAUNCHES), "bigvgan")
     phase_ref("bigvgan", big, ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan",
                                                  device="cpu", seed=SEED), TOL_REF)
+    z = (0.8 * np.random.RandomState(SEED).randn(512, 80)).astype(np.float32)
+    check_tf32_default("bigvgan __call__ (wave)",
+                       lambda: big("Hello world, this is a test.", glow_noise=z))
     del big
     scales = phase_main_int8(iface, launches)
     cpu_int8 = ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED)
@@ -766,6 +909,9 @@ def main():
                f"(tolerance {TOL_EMB})")
     if not emb_err <= TOL_EMB:
         raise AssertionError("the GST embedding on the card disagrees with the CPU's")
+    check_tf32_default("imcol set_utterance_embedding (embedding)", lambda: (
+        imcol.set_utterance_embedding(wave=ref_wave, sr=24000),
+        imcol.default_utterance_embedding)[1])
     phase_ref("imcol int8 hifigan", imcol, cpu_imcol, TOL_REF_INT8, relative=True)
 
     kernels = [

@@ -22,6 +22,7 @@ from toucan_tpu.models.vocoders.hifigan import HiFiGANGenerator as JaxHiFiGAN
 from toucan_tpu_torch.infer.interface import ToucanTTSInterface
 from toucan_tpu_torch.models.toucan_tts import ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
+from toucan_tpu_torch.utils.device import f32_precision
 from toucan_tpu_torch.weights import hifigan_from_jax, toucan_tts_from_jax
 
 from test_torch_modules import seeded_variables
@@ -164,3 +165,56 @@ def test_entry_point_raises_without_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         ToucanTTSInterface({}, {}, config=ToucanTTSConfig(**TINY))
+
+
+@pytest.mark.parametrize("cudnn_tf32,matmul_tf32", [(True, True), (True, False),
+                                                    (False, True), (False, False)])
+def test_call_runs_f32_and_restores_tf32_flags(pair, cudnn_tf32, matmul_tf32):
+    """``__call__`` runs its convs and matmuls in f32 whatever the caller's
+    TF32 flags (PyTorch's default turns TF32 on for cuDNN convs), and
+    leaves the flags as it found them."""
+    _, port = pair
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    before = cudnn.allow_tf32, matmul.allow_tf32
+    seen = []
+    hook = port.vocoder.register_forward_pre_hook(
+        lambda *_: seen.append((cudnn.allow_tf32, matmul.allow_tf32)))
+    try:
+        cudnn.allow_tf32, matmul.allow_tf32 = cudnn_tf32, matmul_tf32
+        port(IPA, input_is_phones=True)
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (cudnn_tf32, matmul_tf32)
+        with f32_precision():
+            assert (cudnn.allow_tf32, matmul.allow_tf32) == (False, False)
+        assert (cudnn.allow_tf32, matmul.allow_tf32) == (cudnn_tf32, matmul_tf32)
+    finally:
+        hook.remove()
+        cudnn.allow_tf32, matmul.allow_tf32 = before
+    assert seen == [(False, False)]
+
+
+def test_call_pins_ieee_under_the_newer_precision_api(pair):
+    """Once a caller has set PyTorch's newer ``fp32_precision`` switches
+    (after which reading ``allow_tf32`` raises), ``__call__`` runs with
+    cuDNN conv, cuDNN RNN and matmul at "ieee" and restores the caller's
+    values after it."""
+    _, port = pair
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    switches = (cudnn.conv, cudnn.rnn, matmul)
+    before = [s.fp32_precision for s in switches]
+    seen = []
+    hook = port.vocoder.register_forward_pre_hook(
+        lambda *_: seen.append([s.fp32_precision for s in switches]))
+    try:
+        cudnn.conv.fp32_precision = cudnn.rnn.fp32_precision = "tf32"
+        matmul.fp32_precision = "tf32"
+        port(IPA, input_is_phones=True)
+        assert [s.fp32_precision for s in switches] == ["tf32"] * 3
+        with f32_precision():
+            assert [s.fp32_precision for s in switches] == ["ieee"] * 3
+        assert [s.fp32_precision for s in switches] == ["tf32"] * 3
+    finally:
+        hook.remove()
+        for s, value in zip(switches, before):
+            s.fp32_precision = value
+    assert seen == [["ieee"] * 3]
+    cudnn.allow_tf32, matmul.allow_tf32  # the legacy flags read again

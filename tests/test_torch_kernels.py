@@ -20,7 +20,7 @@ from toucan_tpu.models.vocoders.hifigan import ResidualStack
 from toucan_tpu.nn.attention import RelPositionMultiHeadedAttention as JaxRelMHA
 from toucan_tpu_torch.kernels.flash_attention import flash_rel_attention
 from toucan_tpu_torch.kernels.resstack import (hifigan_stage, hifigan_stage_plain,
-                                               pack_stage)
+                                               pack_stage, stage_halo)
 from toucan_tpu_torch.nn.attention import RelPositionMultiHeadedAttention
 
 torch.set_num_threads(2)
@@ -153,3 +153,160 @@ def test_stage_weights_unpack_to_the_packed_convs():
         np.testing.assert_array_equal(pw.numpy(), w.transpose(2, 1, 0))
         np.testing.assert_array_equal(pb.numpy(), b)
     assert [d for _, _, d in unpacked] == [d for _ in ks for dd in dil for d in (dd, 1)]
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits), to nearest on the bit pattern,
+    ties away from zero, as cvt.rna.tf32.f32 does."""
+    bits = x.float().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_products(split):
+    """An f64 product of TF32 operands, as the tensor cores form it: single
+    TF32 (big . big) or split TF32 (big . big + big . small + small . big,
+    with small = tf32(x - big))."""
+    def parts(x):
+        big = _tf32(x)
+        return big.double(), _tf32(x.float() - big).double()
+
+    def product(op, a, b):
+        (ab, as_), (bb, bs) = parts(a), parts(b)
+        out = op(ab, bb)
+        return out + op(ab, bs) + op(as_, bb) if split else out
+    return product
+
+
+def _attention_case(rng):
+    (q_u, q_v, k, v), p, lens = _attention_inputs(128, (128,), b=1, h=2, d=48, seed=7)
+    args = [torch.from_numpy(a).double() for a in (q_u, q_v, k, v, p)]
+    return args + [torch.from_numpy(lens)]
+
+
+def _stage_case(rng):
+    """One stage at C = 64, T = 256 with conv weights at unit gain (std
+    1/sqrt(k C)): at HiFiGAN's init std of 0.01 the convs hardly move the
+    stream, and single TF32 passes too."""
+    c, ks, dil = 64, (3, 7, 11), (1, 3, 5)
+    params = [[(rng.randn(k, c, c) / np.sqrt(k * c), rng.randn(c) * 0.1,
+                rng.randn(k, c, c) / np.sqrt(k * c), rng.randn(c) * 0.1)
+               for _ in dil] for k in ks]
+    params = [[tuple(a.astype(np.float32) for a in conv) for conv in stack] for stack in params]
+    sw = _stage_weights(rng, c, ks, dil, params)
+    sw = type(sw)(sw.w.double(), sw.b.double(), c, ks, dil, sw.slope)
+    return [torch.from_numpy(rng.randn(1, 256, c).astype(np.float32)).double(), sw]
+
+
+@pytest.mark.parametrize("kernel", ["flash_rel_attention", "hifigan_stage"])
+def test_split_tf32_keeps_f32_accuracy(monkeypatch, kernel):
+    """Why K1 and K2 multiply in split TF32: with every product of the plain
+    version formed from TF32 operands (emulated in f64), single TF32 misses
+    the kernels' tolerances against f64 and split TF32 stays inside them."""
+    import toucan_tpu_torch.kernels.resstack as resstack
+    from toucan_tpu_torch.kernels.flash_attention import flash_rel_attention_plain
+
+    rng = np.random.RandomState(8)
+    if kernel == "flash_rel_attention":
+        fn, args = flash_rel_attention_plain, _attention_case(rng)
+        target, name, original = torch.Tensor, "__matmul__", torch.Tensor.__matmul__
+
+        def within(got, want):
+            return (got - want).abs().max().item() <= 2e-5
+    else:
+        fn, args = hifigan_stage_plain, _stage_case(rng)
+        target, name, original = resstack.F, "conv1d", torch.nn.functional.conv1d
+
+        def within(got, want):
+            return ((got - want).abs() - 2e-3 * want.abs()).max().item() <= 2e-4
+    want = fn(*args)
+    errors = {}
+    for split in (False, True):
+        product = _tf32_products(split)
+        if kernel == "flash_rel_attention":
+            emulated = lambda a, b: product(original, a, b)  # noqa: E731
+        else:  # the bias is added once, outside the products
+            emulated = lambda a, w, bias, **kw: product(  # noqa: E731
+                lambda x, y: original(x, y, **kw), a, w) + bias[:, None]
+        monkeypatch.setattr(target, name, emulated)
+        got = fn(*args)
+        monkeypatch.undo()
+        errors[split] = within(got, want)
+    assert errors == {False: False, True: True}
+
+
+def test_weight_split_is_two_tf32_parts():
+    """The K2 wrapper's weight copy: big and small are TF32 values, big is
+    the TF32 rounding of w, and big + small is w to 2^-22 relative."""
+    from toucan_tpu_torch.kernels.resstack import split_tf32
+
+    w = torch.from_numpy(np.random.RandomState(9).randn(4096).astype(np.float32))
+    pairs = split_tf32(w)
+    big, small = pairs[..., 0], pairs[..., 1]
+    assert pairs.shape == (4096, 2) and pairs.is_contiguous()
+    for part in (big, small):
+        assert not (part.view(torch.int32) & 0x1FFF).any()
+    assert torch.equal(big, _tf32(w))
+    assert ((big.double() + small.double() - w.double()).abs()
+            <= 2.0 ** -22 * w.double().abs()).all()
+
+
+# clusters of 4, 2 and 1 blocks the H100 runs at once with K2's shared
+# memory, as cudaOccupancyMaxActiveClusters reports them (chip_smoke.py)
+H100_CLUSTERS = ((4, 30), (2, 66), (1, 132))
+
+
+@pytest.mark.parametrize("clusters_in_flight", [None, H100_CLUSTERS], ids=["n_sm", "h100"])
+@pytest.mark.parametrize("frames,b", [(512, 1), (896, 1), (2048, 1), (512, 4), (896, 4),
+                                      (1024, 4), (2048, 4)])
+def test_stage_tiling_fills_the_card(frames, b, clusters_in_flight):
+    """At every stage shape of the main path (HiFiGAN, 512 channels: stage
+    i has 256 / 2^i channels and 8, 48, 192, 384 samples per frame) on 132
+    SMs: enough tiles for every cluster slot the card has, or one tile
+    covering T; the halo of the widest stack; each block 64 or 32 channels
+    of a cluster of at most 4; the streams under the L2 budget."""
+    from toucan_tpu_torch.kernels.resstack import L2_SCRATCH_BYTES, stage_tiling
+
+    ks, dil, n_sm = (3, 7, 11), (1, 3, 5), 132
+    slots = dict(clusters_in_flight or ())
+    for scale, c in ((8, 256), (48, 128), (192, 64), (384, 32)):
+        t = scale * frames
+        tl = stage_tiling(b, t, c, n_sm, ks, dil, clusters_in_flight)
+        assert tl.halo >= stage_halo(ks, dil) == 60
+        assert tl.cluster * tl.block_channels == c and tl.cluster <= 4
+        assert tl.jobs == b * -(-t // tl.tile)
+        assert tl.jobs >= slots.get(tl.cluster, n_sm // tl.cluster) or tl.tile >= t
+        assert tl.clusters == min(tl.jobs, slots.get(tl.cluster, n_sm // tl.cluster))
+        assert tl.scratch_bytes(c) <= L2_SCRATCH_BYTES
+
+
+def test_wrappers_refuse_misaligned_views():
+    """K1 and K2 move their inputs with 16-byte accesses, which fault on the
+    card at a misaligned address: a contiguous view that does not start on
+    a 16-byte boundary raises ValueError before any launch (the checks run
+    here on CPU tensors, as the wrappers run them on CUDA tensors)."""
+    from toucan_tpu_torch.kernels import flash_attention, resstack
+
+    (q_u, q_v, k, v), p, lens = _attention_inputs(8, (8, 3))
+    args = [torch.from_numpy(a) for a in (q_u, q_v, k, v, p, lens)]
+    flash_attention._check(*args)
+    shifted = torch.zeros(args[2].numel() + 1)[1:].view(args[2].shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    with pytest.raises(ValueError, match="k must start on a 16-byte boundary"):
+        flash_attention._check(args[0], args[1], shifted, *args[3:])
+
+    sw = _stage_weights(np.random.RandomState(0), 32, (3, 7, 11), (1, 3, 5))
+    x = torch.zeros(1, 16, 32)
+    resstack._check(x, sw)
+    with pytest.raises(ValueError, match="x must start on a 16-byte boundary"):
+        resstack._check(torch.zeros(x.numel() + 2)[2:].view(x.shape), sw)
+    assert flash_rel_attention.launches == 0 and hifigan_stage.launches == 0
+
+
+def test_stage_tiling_takes_clusters_of_at_most_four():
+    """C = 512 would need 8 blocks of 64 channels: no stage has it, and the
+    chooser refuses it rather than pick a cluster the kernel rejects."""
+    from toucan_tpu_torch.kernels.resstack import MAX_CLUSTER, stage_tiling
+
+    assert stage_tiling(1, 4096, 256, 132, (3, 7, 11), (1, 3, 5)).cluster == MAX_CLUSTER == 4
+    with pytest.raises(ValueError, match="channels, got 512"):
+        stage_tiling(1, 4096, 512, 132, (3, 7, 11), (1, 3, 5))

@@ -1,4 +1,5 @@
-// Flash attention with Transformer-XL relative position bias, f32.
+// Flash attention with Transformer-XL relative position bias, f32 accuracy
+// on the tensor cores (split TF32).
 //
 // Replaces toucan_tpu/kernels/pallas_attention.py::flash_rel_attention
 // (the Pallas kernel _flash_kernel).  For each (b, h):
@@ -10,37 +11,139 @@
 // padded query rows still attend to the valid keys.
 //
 // What bounds it on the H100: operations.  At the decoder's T = 2048 and
-// d = 48 it does 3 * 2 * T^2 * d flops per head (q_u.k, q_v.p, P.v) on
-// 2 MB of inputs, far above the f32 machine balance.  This first version
-// runs on the CUDA cores in f32, so its roof is the 67 TFLOP/s f32 rate.
+// d = 48 it does 3 * 2 * T^2 * d flops per head (q_u.k, q_v.p, P.v) on a
+// few MB of inputs.  The path is exact f32: the kernel is held to 2e-5
+// against its plain version, and one TF32 product (10 mantissa bits) is
+// off by ~7e-4 on unit-scale inputs.  So every product runs in split TF32
+// ("3xTF32"): each operand x = big + small, big = tf32(x), small =
+// tf32(x - big), and a.b = a_s.b_b + a_b.b_s + a_b.b_b summed in f32, which
+// misses only a_s.b_s (~2^-22 relative).  Three tensor-core products per
+// product give a roof of 495 / 3 = 165 TFLOP/s (against 67 on the f32 CUDA
+// cores), all on mma.sync.m16n8k8 TF32.
 //
-// Design: one block of 256 threads per (64-row query tile, h, b) walks the
-// key tiles of 64 with an online softmax, so nothing of size T^2 or T*(2T-1)
-// is ever stored.  The rel-pos bias of query tile [i0, i0+64) and key tile
-// [j0, j0+64) needs only rows T-1-(i0+63)+j0 ... T-1-i0+j0+63 of p, 127
-// contiguous rows, which are staged in shared memory next to the k and v
-// tiles; the bias is computed directly as q_v[i] . p[T-1-i+j], no pad or
-// reshape trick.  Key tiles wholly past lengths[b] are skipped (exact).
-// Each thread owns a 4x4 block of the 64x64 score tile (rows ty+16a, keys
-// tx+16b); row maxima and sums are reduced over the 16 lanes of a row with
-// warp shuffles.  Rows are padded by one float in shared memory to keep the
-// strided reads free of bank conflicts.
+// Layout: one block of 4 warps per (64-row query tile, h, b); each warp
+// owns 16 query rows and walks key tiles of BK = 32 with an online softmax
+// in f32, so nothing of size T^2 is stored.  Key tiles wholly past
+// lengths[b] are skipped (exact).
+//  - The rel-pos bias is a small GEMM plus a skewed read, as in the JAX
+//    kernel (bd = q_v . p_window^T, then a rel-shift).  Query tile i0 and key
+//    tile j0 need the BQ + BK - 1 contiguous rows of p from
+//    T - BQ - i0 + j0; a warp's 16 rows need 47 of them, so each warp
+//    computes BD = q_v(16 x d) . p_rows(48 x d)^T on the tensor cores.  The
+//    skew BD[r, 15 - r + c] crosses the accumulator fragments' thread
+//    ownership, so the warp writes BD to its own 16 x 56 slice of shared
+//    memory and reads it back skewed (a __syncwarp, no block barrier) as
+//    the initial value of the score accumulators, on which q_u . k^T is
+//    then summed.
+//  - P.v takes the probabilities straight from the score accumulators: a
+//    thread holds keys 2t and 2t+1 of its rows, so the A fragment's columns
+//    t and t+4 are read as keys 2t and 2t+1, and the B fragment (v) is
+//    loaded with the same key permutation.  No shuffle, no shared memory.
+//  - K, V and p rows of the next key tile are staged with cp.async (16 B a
+//    thread, rows past T or past the table zero-filled) into the second of
+//    two buffers while the current tile computes.  q_u and q_v are staged
+//    once, and each warp splits its A fragments of them once into registers
+//    (16 x d x 2 x 2 values: 96 registers a thread at d = 48), which took
+//    19 % off the time at T = 2048.  K, V and p stay f32 in shared memory
+//    and are split as each fragment is loaded.
+//  - P . V of each key tile is summed in its own accumulators and added to
+//    the running output in f32: the tensor cores' accumulation truncates,
+//    and one chain over 2048 keys drifted by 2.3e-5, past the tolerance.
+//  - Shared memory rows are padded to d + 4 floats (d + 4 = 4 mod 16), so
+//    the fragment loads of q, k, p (row g, column t) and of v (row 2t,
+//    column g) are free of bank conflicts.
+// Shared memory: 2 x 64 (q) + 2 x (32 + 32 + 96) (k, v, p) rows of d + 4
+// floats, plus 4 x 16 x 56 floats for BD: 105 KB at d = 48 (two blocks per
+// SM, ~225 registers a thread), 133 KB at d = 64 (one).  The decoder at
+// B = 1, T = 2048 runs 128 blocks of 4 warps on the 132 SMs.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per tile
-constexpr int NT = 256;  // threads per block: 16 x 16
+constexpr int BQ = 64;            // query rows per block
+constexpr int BK = 32;            // keys per tile
+constexpr int NW = 4;             // warps per block, 16 query rows each
+constexpr int NT = 32 * NW;
+constexpr int NPW = BQ + BK;      // p rows staged per key tile (BQ + BK - 1 used)
+constexpr int BDC = BK + 16;      // BD columns per warp (BK + 15 used)
+constexpr int BDP = BDC + 8;      // padded BD row
+
+template <int D>
+__host__ __device__ constexpr int dp() { return D + 4; }
 
 template <int D>
 constexpr size_t smem_floats() {
-  return 3 * BQ * (D + 1)             // q_u, q_v, k
-         + BK * D                     // v
-         + (BQ + BK - 1) * (D + 1)    // rel-pos rows
-         + BQ * (BK + 1);             // probabilities of the tile
+  return (size_t)2 * BQ * dp<D>() + 2 * (size_t)(2 * BK + NPW) * dp<D>() +
+         (size_t)NW * 16 * BDP;
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n"); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// x = big + small, both TF32 (round to nearest)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(big) : "f"(x));
+  const float rest = x - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(small) : "f"(rest));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a . b in split TF32: small terms first, then big . big
+__device__ __forceinline__ void mma3(float (&c)[4], const uint32_t (&ab)[4],
+                                     const uint32_t (&as)[4], const uint32_t (&bb)[2],
+                                     const uint32_t (&bs)[2]) {
+  mma_tf32(c, as, bb);
+  mma_tf32(c, ab, bs);
+  mma_tf32(c, ab, bb);
+}
+
+// A fragment (16 x 8, row major) of rows r0.., columns k0.. of a staged
+// matrix with row stride ld
+__device__ __forceinline__ void load_a(const float* s, int ld, int r0, int k0, int g, int t,
+                                       uint32_t (&ab)[4], uint32_t (&as)[4]) {
+  split_tf32(s[(r0 + g) * ld + k0 + t], ab[0], as[0]);
+  split_tf32(s[(r0 + g + 8) * ld + k0 + t], ab[1], as[1]);
+  split_tf32(s[(r0 + g) * ld + k0 + t + 4], ab[2], as[2]);
+  split_tf32(s[(r0 + g + 8) * ld + k0 + t + 4], ab[3], as[3]);
+}
+
+// B fragment (8 x 8, column major) of b[k][n] = s[n0 + n][k0 + k]
+__device__ __forceinline__ void load_bt(const float* s, int ld, int n0, int k0, int g, int t,
+                                        uint32_t (&bb)[2], uint32_t (&bs)[2]) {
+  split_tf32(s[(n0 + g) * ld + k0 + t], bb[0], bs[0]);
+  split_tf32(s[(n0 + g) * ld + k0 + t + 4], bb[1], bs[1]);
+}
+
+// Stage rows [r0, r0 + n) of a (rows x D) matrix into s (stride D + 4);
+// rows outside [0, rows) are zero-filled.
+template <int D>
+__device__ __forceinline__ void stage_rows(float* s, const float* g, int r0, int n, int rows) {
+  constexpr int CH = D / 4;  // 16-byte chunks per row
+  for (int idx = threadIdx.x; idx < n * CH; idx += NT) {
+    const int r = idx / CH, c = (idx - r * CH) * 4;
+    const int gr = r0 + r;
+    const bool ok = gr >= 0 && gr < rows;
+    cp_async16(s + r * dp<D>() + c, g + (size_t)(ok ? gr : 0) * D + c, ok);
+  }
 }
 
 template <int D>
@@ -49,163 +152,203 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
     const float* __restrict__ kg, const float* __restrict__ vg,
     const float* __restrict__ pg, const int* __restrict__ lengths,
     float* __restrict__ out, int H, int T, float scale) {
-  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
-  constexpr int DP = D + 1;
-  constexpr int NP = BQ + BK - 1;
-  constexpr int SP = BK + 1;
-  constexpr int E = D / 16;
+  static_assert(D % 8 == 0, "head dim must be a multiple of 8");
+  constexpr int DP = dp<D>();
+  constexpr int KD = D / 8;   // k-steps over the head dim
+  constexpr int NO = D / 8;   // n-tiles of the output
+  constexpr int NS = BK / 8;  // n-tiles of the score tile
+  constexpr int NB = BDC / 8; // n-tiles of BD
+  constexpr int STAGE = (2 * BK + NPW) * DP;
 
-  extern __shared__ float smem[];
-  float* s_qu = smem;
+  extern __shared__ float4 smem4[];
+  float* s_qu = reinterpret_cast<float*>(smem4);
   float* s_qv = s_qu + BQ * DP;
-  float* s_k = s_qv + BQ * DP;
-  float* s_v = s_k + BK * DP;
-  float* s_p = s_v + BK * D;
-  float* s_s = s_p + NP * DP;
+  float* s_stage = s_qv + BQ * DP;
+  float* s_bd_all = s_stage + 2 * STAGE;
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int i0 = blockIdx.x * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const size_t base = ((size_t)b * H + h) * (size_t)T * D;
-  const float* qu_bh = qu + base;
-  const float* qv_bh = qv + base;
-  const float* k_bh = kg + base;
-  const float* v_bh = vg + base;
-  float* o_bh = out + base;
   const float* p_h = pg + (size_t)h * (2 * T - 1) * D;
+  float* s_bd = s_bd_all + warp * 16 * BDP;
+  const int rw = warp * 16;          // the warp's first query row in the tile
+  const int pb = BQ - 16 - rw;       // the warp's first p row in the staged window
   const int len = min(max(lengths[b], 0), T);
-
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int r = idx / D, c = idx - r * D;
-    const int gi = i0 + r;
-    float a = 0.f, bb = 0.f;
-    if (gi < T) {
-      a = qu_bh[(size_t)gi * D + c];
-      bb = qv_bh[(size_t)gi * D + c];
-    }
-    s_qu[r * DP + c] = a;
-    s_qv[r * DP + c] = bb;
-  }
-
-  float acc[4][E];
-  float m_i[4], l_i[4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_i[a] = -INFINITY;
-    l_i[a] = 0.f;
-#pragma unroll
-    for (int e = 0; e < E; ++e) acc[a][e] = 0.f;
-  }
-
   const int n_kt = (len + BK - 1) / BK;
-  for (int kt = 0; kt < n_kt; ++kt) {
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};
+  float l_part[2] = {0.f, 0.f};
+  uint32_t qub[KD][4], qus[KD][4], qvb[KD][4], qvs[KD][4];  // split q fragments
+
+  auto stage_tile = [&](int kt) {
+    float* s = s_stage + (kt & 1) * STAGE;
     const int j0 = kt * BK;
-    __syncthreads();  // the previous tile's k, v, p and probabilities are consumed
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int r = idx / D, c = idx - r * D;
-      const int gj = j0 + r;
-      float kk = 0.f, vv = 0.f;
-      if (gj < T) {
-        kk = k_bh[(size_t)gj * D + c];
-        vv = v_bh[(size_t)gj * D + c];
-      }
-      s_k[r * DP + c] = kk;
-      s_v[r * D + c] = vv;
-    }
-    // rel row of (query i0+r, key j0+c) is lo + (BQ-1-r+c)
-    const int lo = T - 1 - (i0 + BQ - 1) + j0;
-    for (int idx = tid; idx < NP * D; idx += NT) {
-      const int r = idx / D, c = idx - r * D;
-      const int g = lo + r;
-      s_p[r * DP + c] = (g >= 0 && g < 2 * T - 1) ? p_h[(size_t)g * D + c] : 0.f;
+    stage_rows<D>(s, kg + base, j0, BK, T);
+    stage_rows<D>(s + BK * DP, vg + base, j0, BK, T);
+    stage_rows<D>(s + 2 * BK * DP, p_h, T - BQ - i0 + j0, NPW, 2 * T - 1);
+  };
+
+  if (n_kt > 0) {
+    stage_rows<D>(s_qu, qu + base, i0, BQ, T);
+    stage_rows<D>(s_qv, qv + base, i0, BQ, T);
+    stage_tile(0);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {
+      stage_tile(kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    float sc[4][4];
+    const float* s_k = s_stage + (kt & 1) * STAGE;
+    const float* s_v = s_k + BK * DP;
+    const float* s_p = s_v + BK * DP;
+    if (kt == 0) {
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int q = 0; q < 4; ++q) sc[a][q] = 0.f;
-
-#pragma unroll 4
-    for (int c = 0; c < D; ++c) {
-      float qa[4], qb[4], kk[4], pp[7];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        qa[a] = s_qu[(ty + 16 * a) * DP + c];
-        qb[a] = s_qv[(ty + 16 * a) * DP + c];
+      for (int kk = 0; kk < KD; ++kk) {
+        load_a(s_qu, DP, rw, kk * 8, g, t, qub[kk], qus[kk]);
+        load_a(s_qv, DP, rw, kk * 8, g, t, qvb[kk], qvs[kk]);
       }
-#pragma unroll
-      for (int q = 0; q < 4; ++q) kk[q] = s_k[(tx + 16 * q) * DP + c];
-      // rows BQ-1-(ty+16a)+(tx+16q) take 7 distinct values, q-a = -3..3
-#pragma unroll
-      for (int e = 0; e < 7; ++e) pp[e] = s_p[(BQ - 1 - ty + tx + 16 * (e - 3)) * DP + c];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          sc[a][q] = fmaf(qa[a], kk[q], fmaf(qb[a], pp[q - a + 3], sc[a][q]));
     }
 
+    // BD = q_v . p_rows^T for the warp's 16 rows and p rows pb .. pb + 47
+    float bd[NB][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      float rmax = -INFINITY;
+    for (int n = 0; n < NB; ++n)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int gj = j0 + tx + 16 * q;
-        const float s = gj < len ? sc[a][q] * scale : -INFINITY;
-        sc[a][q] = s;
-        rmax = fmaxf(rmax, s);
+      for (int e = 0; e < 4; ++e) bd[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const uint32_t(&ab)[4] = qvb[kk];
+      const uint32_t(&as)[4] = qvs[kk];
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        uint32_t bb[2], bs[2];
+        load_bt(s_p, DP, pb + n * 8, kk * 8, g, t, bb, bs);
+        mma3(bd[n], ab, as, bb, bs);
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-      // key j0 < len is valid, so rmax and m_new are finite
-      const float m_new = fmaxf(m_i[a], rmax);
-      const float alpha = expf(m_i[a] - m_new);
-      float rsum = 0.f;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float pe = expf(sc[a][q] - m_new);
-        sc[a][q] = pe;
-        rsum += pe;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        rsum += __shfl_xor_sync(0xffffffffu, rsum, off);
-      l_i[a] = l_i[a] * alpha + rsum;
-      m_i[a] = m_new;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[a][e] *= alpha;
-#pragma unroll
-      for (int q = 0; q < 4; ++q) s_s[(ty + 16 * a) * SP + tx + 16 * q] = sc[a][q];
     }
-    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      *reinterpret_cast<float2*>(s_bd + g * BDP + n * 8 + 2 * t) = make_float2(bd[n][0], bd[n][1]);
+      *reinterpret_cast<float2*>(s_bd + (g + 8) * BDP + n * 8 + 2 * t) =
+          make_float2(bd[n][2], bd[n][3]);
+    }
+    __syncwarp();
 
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float pa[4], vv[E];
+    // scores start from the skewed bias: S[r, c] = BD[r, 15 - r + c]
+    float sc[NS][4];
 #pragma unroll
-      for (int a = 0; a < 4; ++a) pa[a] = s_s[(ty + 16 * a) * SP + j];
-#pragma unroll
-      for (int e = 0; e < E; ++e) vv[e] = s_v[j * D + tx + 16 * e];
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int e = 0; e < E; ++e) acc[a][e] = fmaf(pa[a], vv[e], acc[a][e]);
+    for (int n = 0; n < NS; ++n) {
+      const int c = n * 8 + 2 * t;
+      sc[n][0] = s_bd[g * BDP + 15 - g + c];
+      sc[n][1] = s_bd[g * BDP + 16 - g + c];
+      sc[n][2] = s_bd[(g + 8) * BDP + 7 - g + c];
+      sc[n][3] = s_bd[(g + 8) * BDP + 8 - g + c];
     }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      const uint32_t(&ab)[4] = qub[kk];
+      const uint32_t(&as)[4] = qus[kk];
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t bb[2], bs[2];
+        load_bt(s_k, DP, n * 8, kk * 8, g, t, bb, bs);
+        mma3(sc[n], ab, as, bb, bs);
+      }
+    }
+
+    // online softmax over this tile's keys; rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    const int j0 = kt * BK;
+    float rmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = j0 + n * 8 + 2 * t + (e & 1);
+        const float s = j < len ? sc[n][e] * scale : -INFINITY;
+        sc[n][e] = s;
+        rmax[e >> 1] = fmaxf(rmax[e >> 1], s);
+      }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
+      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
+      // key j0 < len is valid, so the row maximum and m_new are finite
+      const float m_new = fmaxf(m_row[r], rmax[r]);
+      alpha[r] = expf(m_row[r] - m_new);
+      m_row[r] = m_new;
+      l_part[r] *= alpha[r];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float pe = expf(sc[n][e] - m_row[e >> 1]);
+        sc[n][e] = pe;
+        l_part[e >> 1] += pe;
+      }
+
+    // O = alpha O + P . V; A column t is key 2t and column t + 4 is key
+    // 2t + 1; the tile's P . V is summed apart, then added in f32
+    float pv[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < NS; ++kc) {
+      uint32_t ab[4], as[4];
+      split_tf32(sc[kc][0], ab[0], as[0]);
+      split_tf32(sc[kc][2], ab[1], as[1]);
+      split_tf32(sc[kc][1], ab[2], as[2]);
+      split_tf32(sc[kc][3], ab[3], as[3]);
+      const float* v0 = s_v + (kc * 8 + 2 * t) * DP + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bb[2], bs[2];
+        split_tf32(v0[n * 8], bb[0], bs[0]);
+        split_tf32(v0[DP + n * 8], bb[1], bs[1]);
+        mma3(pv[n], ab, as, bb, bs);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = o[n][e] * alpha[e >> 1] + pv[n][e];
+    __syncthreads();  // this buffer is restaged two tiles on
   }
 
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int gi = i0 + ty + 16 * a;
-    if (gi < T) {
-      const float inv = l_i[a] > 0.f ? 1.f / l_i[a] : 0.f;
+  for (int r = 0; r < 2; ++r) {
+    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 1);
+    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 2);
+  }
+  float* o_bh = out + base;
 #pragma unroll
-      for (int e = 0; e < E; ++e) o_bh[(size_t)gi * D + tx + 16 * e] = acc[a][e] * inv;
+  for (int r = 0; r < 2; ++r) {
+    const int gi = i0 + rw + g + 8 * r;
+    if (gi < T) {
+      const float inv = l_part[r] > 0.f ? 1.f / l_part[r] : 0.f;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<float2*>(o_bh + (size_t)gi * D + n * 8 + 2 * t) =
+            make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     }
   }
 }

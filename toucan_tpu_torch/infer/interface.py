@@ -9,7 +9,9 @@ the prosody-control knobs, per-phone prosody overrides, batched synthesis,
 the same buckets as the JAX interface (32 phones, 16 frames per phone,
 64 vocoder frames), so both compute on the same shapes.  Text to wave runs
 on the device without a host round trip; frames past each mel length are
-zeroed before vocoding.
+zeroed before vocoding.  Every entry point runs its convs and matmuls in
+f32 (``utils.device.f32_precision``) whatever the caller's TF32 settings,
+and leaves those settings as it found them.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator, calibrate_act_scales
-from toucan_tpu_torch.utils.device import resolve_device
+from toucan_tpu_torch.utils.device import f32_precision, resolve_device
 
 VOCODERS = {"hifigan": HiFiGANGenerator, "bigvgan": BigVGAN}
 PHONE_BUCKET = 32
@@ -95,6 +97,7 @@ class ToucanTTSInterface:
     def set_accent_language(self, lang: str):
         self.lang_id = language_id(lang) if self.config.lang_embs is not None else None
 
+    @f32_precision()
     def set_utterance_embedding(self, path_to_reference_audio: str = "", embedding=None,
                                 wave=None, sr: int = 16000):
         """Set the speaker: an ``embedding`` as given, or the GST embedding of
@@ -114,6 +117,7 @@ class ToucanTTSInterface:
         emb = self.gst(spec[None], [len(spec)])
         self.default_utterance_embedding = emb[0].cpu().numpy()
 
+    @f32_precision()
     def quantize_vocoder(self, calibration_mel=None, calibration_text=None, act_scales=None):
         """Switch the HiFiGAN vocoder to int8 stages (K3) with activation
         scales calibrated on a representative mel.
@@ -194,6 +198,7 @@ class ToucanTTSInterface:
         wave = self._vocoder_call(mel)[..., 0]
         return wave, after, dur, pit, ene, lens
 
+    @f32_precision()
     @torch.inference_mode()
     def _vocode(self, mel: np.ndarray) -> np.ndarray:
         """(L, 80) -> (L*384,) 24 kHz wave, padded to a 64-frame bucket."""
@@ -249,6 +254,7 @@ class ToucanTTSInterface:
                          pitch=pad_override(pitch), energy=pad_override(energy))
         return outs, n
 
+    @f32_precision()
     def __call__(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                  energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
                  durations=None, pitch=None, energy=None, input_is_phones=False,
@@ -263,6 +269,7 @@ class ToucanTTSInterface:
                     ene[0, :n, 0].cpu().numpy())
         return wave
 
+    @f32_precision()
     def synthesize_batch(self, texts, input_is_phones=False, languages=None,
                          utterance_embeddings=None, duration_scaling_factor=1.0,
                          pitch_variance_scale=1.0, energy_variance_scale=1.0,
@@ -303,6 +310,7 @@ class ToucanTTSInterface:
 
     # ----------------------------------------------------------- file I/O
 
+    @f32_precision()
     def read_to_file(self, text_list, file_location, duration_scaling_factor=1.0,
                      pitch_variance_scale=1.0, energy_variance_scale=1.0, silent=True,
                      dur_list=None, pitch_list=None, energy_list=None,

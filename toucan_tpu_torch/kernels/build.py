@@ -85,6 +85,19 @@ def load(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def check_aligned(what: str, **tensors):
+    """Raise ValueError unless each tensor starts on a 16-byte boundary.
+
+    The kernels move these with 16-byte accesses (``cp.async``, float4), which
+    fault on a misaligned address and leave the CUDA context unusable; a
+    contiguous view into a larger buffer can start anywhere.
+    """
+    for name, x in tensors.items():
+        if x.data_ptr() % 16:
+            raise ValueError(f"{what}: {name} must start on a 16-byte boundary "
+                             f"(storage offset {x.storage_offset()}); pass a copy")
+
+
 def check(lib: ctypes.CDLL, err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what} failed: CUDA error {err} "

@@ -54,6 +54,7 @@ def _check(q_u, q_v, k, v, p, lengths):
     for x in (q_v, k, v, p, lengths):
         if x.device != q_u.device:
             raise ValueError("all inputs must be on one device")
+    build.check_aligned("flash_rel_attention", q_u=q_u, q_v=q_v, k=k, v=v, p=p)
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not built; supported: {SUPPORTED_HEAD_DIMS}")
     if t < 1 or b > 65535 or h > 65535:

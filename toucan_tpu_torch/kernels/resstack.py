@@ -4,12 +4,15 @@ Counterpart of ``toucan_tpu/kernels/pallas_resstack.py``.  The kernel is
 ``csrc/hifigan_stage.cu``.  ``hifigan_stage`` launches it for CUDA tensors
 and runs ``hifigan_stage_plain`` for CPU tensors; any other device raises.
 One call computes one vocoder stage: three residual stacks of six convs
-each, averaged.
+each, averaged.  ``stage_tiling`` picks each launch's time tile and
+cluster size; the kernel reads a TF32-split copy of the weights that
+``hifigan_stage`` makes once per ``StageWeights``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Sequence, Tuple
 
@@ -78,8 +81,141 @@ def stage_halo(kernel_sizes, dilations) -> int:
     return max((k - 1) // 2 * sum(d + 1 for d in dilations) for k in kernel_sizes)
 
 
-def _tile_rows(channels: int) -> int:
-    return 128 if channels >= 128 else 256 if channels >= 64 else 512
+L2_SCRATCH_BYTES = 24 << 20   # streams of all clusters in flight: under half the 50 MB L2
+MIN_TILE = 8
+MAX_CLUSTER = 4   # HiFiGAN's widest stage, C = 256, is 4 blocks of 64
+
+
+@dataclass(frozen=True)
+class StageTiling:
+    """How one K2 launch cuts its work (see ``stage_tiling``)."""
+
+    tile: int           # output rows per work unit (time tile)
+    cluster: int        # blocks per cluster; block r takes channels [r NB, (r+1) NB)
+    block_channels: int  # NB: 64 or 32
+    clusters: int       # clusters launched (persistent: each walks tiles in turn)
+    halo: int           # recomputed rows per side
+    jobs: int           # B x time tiles
+
+    @property
+    def grid(self) -> int:
+        return self.clusters * self.cluster
+
+    def scratch_bytes(self, channels: int) -> int:
+        return self.clusters * 2 * (self.tile + 2 * self.halo) * channels * 4
+
+
+def _tile_cost(tile, rows_per_pass, kernel_sizes, dilations) -> int:
+    """Passes of one block over a tile, weighted by taps: each conv computes
+    the rows later convs read (the tile plus what is left of the stack's
+    halo), in whole passes of ``rows_per_pass`` rows.  A pass of NB = 64
+    channels x 128 rows and one of 32 x 256 cost the same."""
+    cost = 0
+    for k in kernel_sizes:
+        rows = tile + 2 * ((k - 1) // 2 * sum(d + 1 for d in dilations))
+        for d in dilations:
+            for dd in (d, 1):
+                rows -= (k - 1) * dd
+                cost += k * -(-rows // rows_per_pass)
+    return cost
+
+
+@functools.lru_cache(maxsize=512)
+def stage_tiling(b: int, t: int, channels: int, n_sm: int, kernel_sizes, dilations,
+                 clusters_in_flight=None) -> StageTiling:
+    """Pick K2's time tile and cluster size for one call.
+
+    Options: NB = 64 channels per block (cluster C / 64) or NB = 32 (C / 32),
+    clusters of at most 4 blocks.  ``clusters_in_flight``:
+    ((cluster, clusters the card runs at once), ...) as the device reports
+    it; default n_sm // cluster.  For each option and each number of waves
+    w, the tile is the smallest that needs only w waves of clusters; the
+    estimate is waves x ``_tile_cost``, and the cheapest wins (ties: fewer
+    waves, then smaller clusters).  So a stage fills the card unless its
+    recomputed halo costs more than the idle SMs, and a tile never gets so
+    large that the streams of all clusters in flight pass
+    ``L2_SCRATCH_BYTES``."""
+    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    halo = stage_halo(kernel_sizes, dilations)
+    in_flight = dict(clusters_in_flight or ())
+    options = [(nb, channels // nb) for nb in (64, 32)
+               if channels % nb == 0 and channels // nb <= MAX_CLUSTER]
+    if not options:
+        raise ValueError(f"K2 takes C = 32 x (1 .. 4) or 64 x (1 .. 4) channels, got {channels}")
+    floor = 2 * len(dilations) * sum(kernel_sizes)   # one pass per conv
+    best = None
+    for nb, cs in options:
+        slots = max(1, in_flight.get(cs, n_sm // cs))
+        rows_per_pass = 128 if nb == 64 else 256   # 8 warps of 16 or of 32 rows
+        max_tiles = -(-t // min(MIN_TILE, t))
+        waves = 0
+        while waves * floor < (best[0][0] if best else float("inf")):
+            waves += 1
+            tile = -(-t // min(max(1, waves * slots // b), max_tiles))
+            jobs = b * -(-t // tile)
+            clusters = min(jobs, slots)
+            if clusters * 2 * (tile + 2 * halo) * channels * 4 > L2_SCRATCH_BYTES \
+                    and tile > MIN_TILE:
+                continue
+            n_waves = -(-jobs // slots)
+            est = (n_waves * _tile_cost(tile, rows_per_pass, kernel_sizes, dilations),
+                   n_waves, cs)
+            if best is None or est < best[0]:
+                best = (est, StageTiling(tile, cs, nb, clusters, halo, jobs))
+            if tile <= MIN_TILE:
+                break
+    return best[1]
+
+
+def split_tf32(w: torch.Tensor) -> torch.Tensor:
+    """(..., 2): w's TF32 (big, small) pair, big = tf32(w), small = tf32(w - big),
+    rounded to nearest with ties away from zero as ``cvt.rna.tf32.f32`` does."""
+    def rna(x):
+        return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+    big = rna(w)
+    return torch.stack([big, rna(w - big)], dim=-1).contiguous()
+
+
+def _split_weights(sw: StageWeights) -> torch.Tensor:
+    """The kernel's split copy of ``sw.w``, made once per StageWeights."""
+    cached = sw.__dict__.get("_tf32_pairs")
+    if cached is None or cached.device != sw.w.device:
+        cached = split_tf32(sw.w)
+        object.__setattr__(sw, "_tf32_pairs", cached)
+    return cached
+
+
+_max_clusters_cache: dict = {}
+
+
+def _clusters_in_flight(device, channels, kernel_sizes, dilations):
+    """((cluster, clusters the device runs at once), ...) for K2's options."""
+    key = (device.index, channels, kernel_sizes[-1], dilations[-1])
+    if key not in _max_clusters_cache:
+        lib = build.load("hifigan_stage")
+        fn = lib.hifigan_stage_max_clusters
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        pairs = []
+        for nb in (64, 32):
+            if channels % nb or channels // nb > MAX_CLUSTER:
+                continue
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = fn(channels, channels // nb, kernel_sizes[-1], dilations[-1],
+                         ctypes.addressof(n))
+            build.check(lib, err, "hifigan_stage_max_clusters")
+            pairs.append((channels // nb, n.value))
+        _max_clusters_cache[key] = tuple(pairs)
+    return _max_clusters_cache[key]
+
+
+def tiling_for(x: torch.Tensor, sw: StageWeights) -> StageTiling:
+    """The tiling ``hifigan_stage`` launches x with on its card."""
+    b, t, c = x.shape
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return stage_tiling(b, t, c, n_sm, tuple(sw.kernel_sizes), tuple(sw.dilations),
+                        _clusters_in_flight(x.device, c, sw.kernel_sizes, sw.dilations))
 
 
 def hifigan_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
@@ -91,6 +227,34 @@ def hifigan_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
         return hifigan_stage_plain(x, sw)
     if x.device.type != "cuda":
         raise ValueError(f"hifigan_stage takes cuda or cpu tensors, got {x.device}")
+    _check(x, sw)
+    b, t, c = x.shape
+    tl = tiling_for(x, sw)
+    w2 = _split_weights(sw)
+    out = torch.empty_like(x)
+    scratch = torch.empty((tl.clusters, 2, tl.tile + 2 * tl.halo, c), device=x.device,
+                          dtype=torch.float32)
+    lib = build.load("hifigan_stage")
+    fn = lib.hifigan_stage_f32
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 13 + [ctypes.c_float, ctypes.c_void_p]
+    ks, ds = sw.kernel_sizes, sw.dilations
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), w2.data_ptr(), sw.b.data_ptr(), out.data_ptr(),
+                 scratch.data_ptr(), b, t, c, ks[0], ks[1], ks[2], ds[0], ds[1], ds[2],
+                 tl.tile, tl.halo, tl.cluster, tl.grid, sw.slope, stream)
+    build.check(lib, err, "hifigan_stage")
+    hifigan_stage.launches += 1
+    return out
+
+
+hifigan_stage.launches = 0
+
+
+def _check(x: torch.Tensor, sw: StageWeights):
+    """What the kernel needs of x and sw (the wrapper's own copies, out and
+    the scratch, are fresh allocations and meet it)."""
     if x.dim() != 3 or x.shape[-1] != sw.channels:
         raise ValueError(f"x must be (B, T, {sw.channels}), got {tuple(x.shape)}")
     if x.dtype != torch.float32 or not x.is_contiguous():
@@ -102,26 +266,4 @@ def hifigan_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
     if list(sw.kernel_sizes) != sorted(sw.kernel_sizes) or \
             list(sw.dilations) != sorted(sw.dilations):
         raise ValueError("kernel sizes and dilations must be ascending")
-    b, t, c = x.shape
-    tile = min(_tile_rows(c), t)
-    halo = stage_halo(sw.kernel_sizes, sw.dilations)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    grid = min(b * -(-t // tile), 2 * n_sm)
-    out = torch.empty_like(x)
-    scratch = torch.empty((grid, 2, tile + 2 * halo, c), device=x.device, dtype=torch.float32)
-    lib = build.load("hifigan_stage")
-    fn = lib.hifigan_stage_f32
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 12 + [ctypes.c_float, ctypes.c_void_p]
-    ks, ds = sw.kernel_sizes, sw.dilations
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(x.data_ptr(), sw.w.data_ptr(), sw.b.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), b, t, c, ks[0], ks[1], ks[2], ds[0], ds[1], ds[2],
-                 tile, halo, grid, sw.slope, stream)
-    build.check(lib, err, "hifigan_stage")
-    hifigan_stage.launches += 1
-    return out
-
-
-hifigan_stage.launches = 0
+    build.check_aligned("hifigan_stage", x=x)
