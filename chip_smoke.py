@@ -9,8 +9,9 @@ Phases, each reported on its own lines:
 
 1. build: nvcc compiles every kernel of the port for sm_90a, one process
    per source, all at once, and prints ptxas's registers / shared memory /
-   spills, and the count of tensor-core instructions (HMMA, HGMMA) in the
-   SASS of K1 and K2, which must not be 0;
+   spills, and the count of tensor-core instructions (HMMA, HGMMA, IMMA)
+   and of ``__dp4a`` (IDP) in the SASS of K1, K2 and K3: K1 and K2 must
+   hold HMMA, K3 IMMA (int8) and HMMA (bf16);
 2. k1: the rel-pos flash attention kernel against its plain PyTorch version
    at B=2, H=4, d=48, T in (128, 2048), and at the main path's encoder
    (B=1, T=128) and decoder (B=1, T=2048, 110 and 2048 valid keys), with
@@ -24,7 +25,10 @@ Phases, each reported on its own lines:
    BigVGAN's four stage shapes of 512 mel frames (and T = 8 for the edges);
 5. k3: the quantized HiFiGAN stage kernel, int8 and bf16, against its plain
    versions at the four stage shapes of 512 mel frames, with scales
-   calibrated on the same input, K2's time beside it;
+   calibrated on the same input, K2's time beside it, and the tiling each
+   launch took; where a tile is split over a cluster of blocks, the same
+   launch with one block per tile must give the same output, and the two
+   are timed in turns;
 6. k4: the im2col HiFiGAN stage kernel, int8 and bf16, against its plain
    versions at the shapes of stages 1-3 at 512 mel frames, with K2's and
    K3 int8's times on the same stage beside it;
@@ -34,6 +38,9 @@ Phases, each reported on its own lines:
    sequence lengths and stage lengths of the ``__call__`` on 110 phones
    (2048 vocoder frames), of the call with 8 frames per phone (896) and of
    ``synthesize_batch`` (B = 4);
+   grad: each of K1-K5's wrappers on CUDA inputs that require grad, with
+   grad enabled, must raise ValueError without launching (the kernels have
+   no backward);
 8. main: the full-width model (default ToucanTTSConfig, seeded random
    weights) through ``ToucanTTSInterface``, on four paths, each call with
    its launches counted from 0:
@@ -70,6 +77,7 @@ port's entry points pin f32 themselves.
 """
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -85,6 +93,7 @@ from toucan_tpu_torch.frontend.text import TextFrontend
 from toucan_tpu_torch.infer.interface import (FRAMES_PER_PHONE, PHONE_BUCKET,
                                               ToucanTTSInterface, _round_up)
 from toucan_tpu_torch.kernels import build
+from toucan_tpu_torch.kernels import stage as stage_module
 from toucan_tpu_torch.kernels.aliasfree import alias_free_snake, alias_free_snake_plain
 from toucan_tpu_torch.kernels.flash_attention import (flash_rel_attention,
                                                       flash_rel_attention_plain)
@@ -173,7 +182,10 @@ def bound(flops, nbytes, peak=F32_PEAK):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-TENSOR_CORE_KERNELS = ("flash_rel_attention", "hifigan_stage")
+# the kernels that run on the tensor cores, and the SASS instructions each
+# must hold: K1 and K2 split TF32 (HMMA), K3 int8 (IMMA) and bf16 (HMMA)
+TENSOR_CORE_KERNELS = {"flash_rel_attention": ("HMMA",), "hifigan_stage": ("HMMA",),
+                       "hifigan_stage_q": ("IMMA", "HMMA")}
 
 
 def phase_build():
@@ -186,15 +198,17 @@ def phase_build():
                 log("build", f"{name}: {line.strip()}")
     log("build", f"nvcc built {sorted(logs)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     cuobjdump = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    for name in TENSOR_CORE_KERNELS:
+    for name, needed in TENSOR_CORE_KERNELS.items():
         sass = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path(name))],
                               capture_output=True, text=True, check=True).stdout
+        # IDP: __dp4a on the CUDA cores, which the tensor-core kernels replace
         counts = {op: sum(1 for line in sass.splitlines() if f" {op}" in line)
-                  for op in ("HMMA", "HGMMA")}
-        log("build", f"{name}: tensor-core instructions in SASS: "
+                  for op in ("HMMA", "HGMMA", "IMMA", "IDP")}
+        log("build", f"{name}: instructions in SASS: "
                      + ", ".join(f"{op} {n}" for op, n in counts.items()))
-        if not sum(counts.values()):
-            raise AssertionError(f"{name} has no tensor-core instruction in its SASS")
+        missing = [op for op in needed if not counts[op]]
+        if missing:
+            raise AssertionError(f"{name} has no {', '.join(missing)} instruction in its SASS")
 
 
 def k1_inputs(gen, dev, b, h, d, t, lengths):
@@ -410,6 +424,41 @@ def k3_error(x, qs):
     return diff.max().item(), want.abs().max().item(), int((diff > 0).sum()), diff.numel()
 
 
+def k3_tiling(x, qs):
+    """The tiling a K3 launch on x takes, for the log."""
+    tl = stage_module.tiling_for(x, qs)
+    return (f"tile={tl.tile} cluster={tl.cluster} tiles={tl.jobs} clusters={tl.clusters} "
+            f"smem_kb={tl.smem / 1024:.1f}")
+
+
+def k3_single_blocks(fn):
+    """fn() with K3's tiles each in one block (no cluster)."""
+    chosen = stage_module.tiling_for
+    stage_module.tiling_for = functools.partial(chosen, max_cluster=1)
+    try:
+        return fn()
+    finally:
+        stage_module.tiling_for = chosen
+
+
+def k3_cluster_ab(x, qs):
+    """Where the chooser splits a tile over a cluster: the same launch with
+    one block per tile must give the same output bit for bit (the sums run
+    in the same order), and the two are timed in turns (cluster, single,
+    single, cluster).  Returns (the cluster's ms, the single block's ms,
+    its tiling) or None."""
+    if stage_module.tiling_for(x, qs).cluster == 1:
+        return None
+    single = k3_single_blocks(lambda: quantized_stage(x, qs))
+    if not torch.equal(single, quantized_stage(x, qs)):
+        raise AssertionError("K3 with clusters differs from K3 with one block per tile")
+    a = time_ms(lambda: quantized_stage(x, qs), 3)
+    b = k3_single_blocks(lambda: time_ms(lambda: quantized_stage(x, qs), 3))
+    b2 = k3_single_blocks(lambda: time_ms(lambda: quantized_stage(x, qs), 3))
+    a2 = time_ms(lambda: quantized_stage(x, qs), 3)
+    return (a + a2) / 2, (b + b2) / 2, k3_single_blocks(lambda: k3_tiling(x, qs))
+
+
 def phase_k3(dev, gen, vocoder, k2_stage_ms):
     """K3 in both modes at the four HiFiGAN stage shapes of 512 frames, with
     int8 scales calibrated on the same input.  Returns the int8 totals (the
@@ -426,7 +475,8 @@ def phase_k3(dev, gen, vocoder, k2_stage_ms):
             check_prepared_as_on_cpu(f"K3 {mode} stage {i}", sw, qs, quantize_stage, mode,
                                      scales if mode == "int8" else None)
             err, peak, n_diff, n = k3_error(x, qs)
-            ms = time_ms(lambda: quantized_stage(x, qs), 3)
+            ab = k3_cluster_ab(x, qs)
+            ms = ab[0] if ab else time_ms(lambda: quantized_stage(x, qs), 3)
             plain_ms = time_ms(lambda: quantized_stage_plain(x, qs), 1)
             flops = 252 * t * c * c
             nbytes = (8 * t * c + qs.w.numel() * qs.w.element_size()
@@ -435,8 +485,10 @@ def phase_k3(dev, gen, vocoder, k2_stage_ms):
             log("k3", f"{mode} stage {i}: B=1 T={t} C={c} max_abs_err={err:.3e} "
                       f"(max|out| {peak:.3e}, {n_diff} of {n} elements differ) "
                       f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} k2_ms={k2_stage_ms[i]:.3f} "
-                      f"bound_ms={bound_ms:.4f} ({bound_by}) "
-                      f"achieved_tops={flops / ms / 1e9:.2f}")
+                      f"bound_ms={bound_ms:.4f} ({bound_by}) share_of_bound={bound_ms / ms:.4f} "
+                      f"achieved_tops={flops / ms / 1e9:.2f} {k3_tiling(x, qs)}"
+                      + (f"; one block per tile ({ab[2]}): {ab[1]:.3f} ms, output equal, "
+                         f"timed in turns" if ab else ""))
             if not err <= TOL_K3[mode] * peak:
                 raise AssertionError(f"K3 {mode} disagrees with its plain version at stage {i}")
             if mode == "int8":
@@ -551,6 +603,7 @@ def phase_shapes(dev, gen, vocoder, unit, rows):
             err2_u, excess_u = k2_error(x, unit[i])
             qs = quantize_stage(sw, "int8", calibrate_stage_scales(x, sw))
             err3, peak, n_diff, n = k3_error(x, qs)
+            k3_tl = k3_tiling(x, qs)
             err4, peak4 = 0.0, 0.0
             if i in K4_STAGES:
                 err4, peak4, n_diff4, _ = k4_error(x, prepare_imcol_stage(sw, "int8"))
@@ -561,7 +614,8 @@ def phase_shapes(dev, gen, vocoder, unit, rows):
             log("shapes", f"{name}: stage {i} B={b} T={t} C={c} max_abs_err k2={err2:.3e} "
                           f"(excess {excess:.2e}; unit gain {err2_u:.3e}, "
                           f"excess {excess_u:.2e}) "
-                          f"k3 int8={err3:.3e} (max|out| {peak:.3e}, {n_diff} of {n} differ) "
+                          f"k3 int8={err3:.3e} (max|out| {peak:.3e}, {n_diff} of {n} differ; "
+                          f"{k3_tl}) "
                           + (f"k4 int8={err4:.3e} (max|out| {peak4:.3e}, {n_diff4} differ) "
                              if i in K4_STAGES else "") + f"k5={err5:.3e}")
             if not (excess <= TOL_K2[0] and excess_u <= TOL_K2[0]):
@@ -576,6 +630,39 @@ def phase_shapes(dev, gen, vocoder, unit, rows):
 
 WRAPPERS = {"k1": flash_rel_attention, "k2": hifigan_stage, "k3": quantized_stage,
             "k4": imcol_stage, "k5": alias_free_snake}
+
+
+def phase_grad_refusal(dev, gen, vocoder):
+    """Each wrapper on CUDA inputs that require grad, with grad enabled: the
+    kernels have no backward, so each must raise ValueError before it
+    launches, and no launch count may move."""
+    sw = vocoder.stage_weights(len(STAGE_SCALES) - 1)
+    c, t = sw.channels, 384
+    x = torch.randn(1, t, c, generator=gen, device=dev)
+    qs = quantize_stage(sw, "int8", calibrate_stage_scales(x, sw))
+    st = prepare_imcol_stage(sw, "int8")
+    k1 = k1_inputs(gen, dev, 1, 4, 48, 128, [100])
+    x5, alpha, beta = k5_inputs(gen, dev, 1, t, c)
+    cases = {"k1": lambda g: flash_rel_attention(g(k1[0]), *k1[1:]),
+             "k2": lambda g: hifigan_stage(g(x), sw),
+             "k3": lambda g: quantized_stage(g(x), qs),
+             "k4": lambda g: imcol_stage(g(x), st, imcol_fold(c)),
+             "k5": lambda g: alias_free_snake(x5, g(alpha), beta)}
+    for name, call in cases.items():
+        before = {k: w.launches for k, w in WRAPPERS.items()}
+        with torch.enable_grad():
+            try:
+                call(lambda v: v.detach().clone().requires_grad_())
+            except ValueError as e:
+                msg = str(e)
+            else:
+                raise AssertionError(f"{name}: a grad-enabled call on an input that requires "
+                                     "grad did not raise")
+        after = {k: w.launches for k, w in WRAPPERS.items()}
+        if after != before:
+            raise AssertionError(f"{name}: launch counts moved from {before} to {after}")
+        log("grad", f"{name}: ValueError before any launch ({msg}); launch counts unchanged")
+    torch.cuda.synchronize()
 
 
 def drive(name, fn, expect, launches, waves_of=lambda out: [out], frame=384):
@@ -874,6 +961,7 @@ def main():
     k4 = phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms)
     phase_shapes(dev, gen, vocoder, unit, dict(k1=k1, k2=k2, k3=k3, k4=k4, k5=k5))
     del unit
+    phase_grad_refusal(dev, gen, vocoder)
 
     launches = dict.fromkeys(WRAPPERS, 0)
     iface = ToucanTTSInterface(tts_sd, voc_sd, seed=SEED)

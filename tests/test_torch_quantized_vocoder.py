@@ -31,8 +31,9 @@ from toucan_tpu.models.vocoders.hifigan import HiFiGANGenerator as JaxHiFiGAN
 from toucan_tpu.models.vocoders.hifigan import calibrate_act_scales as jax_calibrate_act
 from toucan_tpu_torch.infer.interface import ToucanTTSInterface
 from toucan_tpu_torch.kernels.resstack import hifigan_stage_plain, stage_halo
-from toucan_tpu_torch.kernels.stage import (SMEM_LIMIT, _smem_bytes, calibrate_stage_scales,
-                                            quantize_stage, quantized_stage, stage_tile)
+from toucan_tpu_torch.kernels.stage import (MIN_TILE, SMEM_LIMIT, _smem_bytes,
+                                            calibrate_stage_scales, quantize_stage,
+                                            quantized_stage, stage_tiling)
 from toucan_tpu_torch.models.toucan_tts import ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator, calibrate_act_scales
@@ -122,14 +123,15 @@ def test_quantized_stage_raises_off_cpu_and_cuda():
 def test_stage_tiles_fit_shared_memory(mode):
     """The tile the CUDA wrapper picks for each HiFiGAN stage shape (512 and
     2048 mel frames, B = 1 and 4) fits the card's shared memory, and a short
-    stage takes the smallest tile."""
+    stage takes the smallest tiles."""
     halo = stage_halo(KS, DIL)
     for frames in (512, 2048):
         for b in (1, 4):
             for scale, c in ((8, 256), (48, 128), (192, 64), (384, 32)):
-                tile = stage_tile(mode, b, scale * frames, c, halo, KS[-1], 132)
-                assert _smem_bytes(mode, c, tile, halo, KS[-1]) <= SMEM_LIMIT
-    assert stage_tile(mode, 1, 40, 256, halo, KS[-1], 132) == 64
+                tl = stage_tiling(mode, b, scale * frames, c, 132, KS, DIL)
+                assert _smem_bytes(mode, c, tl.tile, halo, KS[-1]) <= tl.smem <= SMEM_LIMIT
+    tl = stage_tiling(mode, 1, 40, 256, 132, KS, DIL)
+    assert (tl.tile, tl.n_tiles) == (MIN_TILE, 40 // MIN_TILE)
 
 
 def test_int8_weights_are_the_folded_column_quantization():

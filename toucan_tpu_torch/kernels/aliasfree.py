@@ -29,19 +29,8 @@ def _device_filter(device: torch.device) -> torch.Tensor:
     return resample_filter(device)
 
 
-def alias_free_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
-
-    x (B, T, C) f32; alpha, beta (C,) f32 log-scale SnakeBeta parameters.
-    The kernel walks time innermost: the (B, T, C) view of a contiguous
-    (B, C, T) tensor, as the BigVGAN convs leave it, goes in without a copy;
-    any other strides are copied to that layout first.  Returns the (B, T, C)
-    view of a contiguous (B, C, T) tensor.
-    """
-    if x.device.type == "cpu":
-        return alias_free_snake_plain(x, alpha, beta)
-    if x.device.type != "cuda":
-        raise ValueError(f"alias_free_snake takes cuda or cpu tensors, got {x.device}")
+def _check(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor):
+    """What the kernel needs of its inputs; raises ValueError before a launch."""
     if x.dim() != 3 or x.dtype != torch.float32:
         raise ValueError(f"x must be a (B, T, C) float32 tensor, got {tuple(x.shape)} {x.dtype}")
     b, t, c = x.shape
@@ -51,6 +40,26 @@ def alias_free_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -
             raise ValueError(f"{name} must be a contiguous float32 ({c},) tensor on {x.device}")
     if b > 65535 or t < 1:
         raise ValueError(f"unsupported shape {tuple(x.shape)}")
+    build.check_no_grad("alias_free_snake", x=x, alpha=alpha, beta=beta)
+
+
+def alias_free_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
+    """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
+
+    x (B, T, C) f32; alpha, beta (C,) f32 log-scale SnakeBeta parameters.
+    The kernel walks time innermost: the (B, T, C) view of a contiguous
+    (B, C, T) tensor, as the BigVGAN convs leave it, goes in without a copy;
+    any other strides are copied to that layout first.  Returns the (B, T, C)
+    view of a contiguous (B, C, T) tensor.  The kernel has no backward: on
+    the card a call with grad enabled on an input that requires grad raises
+    ValueError.
+    """
+    if x.device.type == "cpu":
+        return alias_free_snake_plain(x, alpha, beta)
+    if x.device.type != "cuda":
+        raise ValueError(f"alias_free_snake takes cuda or cpu tensors, got {x.device}")
+    _check(x, alpha, beta)
+    b, t, c = x.shape
     xt = x.transpose(1, 2).contiguous()
     taps = _device_filter(x.device)
     out = torch.empty_like(xt)

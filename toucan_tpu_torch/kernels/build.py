@@ -17,6 +17,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -96,6 +98,22 @@ def check_aligned(what: str, **tensors):
         if x.data_ptr() % 16:
             raise ValueError(f"{what}: {name} must start on a 16-byte boundary "
                              f"(storage offset {x.storage_offset()}); pass a copy")
+
+
+def check_no_grad(what: str, **tensors):
+    """Raise ValueError if grad is enabled and a tensor requires grad.
+
+    The kernels write their outputs through raw pointers, so an output on
+    the card has no autograd graph: a grad-enabled call would train only the
+    layers after the kernel, and nothing would say so.  The plain versions,
+    which CPU tensors take, stay differentiable.
+    """
+    if torch.is_grad_enabled():
+        needs = [name for name, x in tensors.items() if x.requires_grad]
+        if needs:
+            raise ValueError(f"{what}: {', '.join(needs)} require grad, and the CUDA kernel "
+                             "has no backward; call it under torch.no_grad() or "
+                             "torch.inference_mode(), or detach the inputs")
 
 
 def check(lib: ctypes.CDLL, err: int, what: str):

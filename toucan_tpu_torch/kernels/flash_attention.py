@@ -55,6 +55,7 @@ def _check(q_u, q_v, k, v, p, lengths):
         if x.device != q_u.device:
             raise ValueError("all inputs must be on one device")
     build.check_aligned("flash_rel_attention", q_u=q_u, q_v=q_v, k=k, v=v, p=p)
+    build.check_no_grad("flash_rel_attention", q_u=q_u, q_v=q_v, k=k, v=v, p=p)
     if d not in SUPPORTED_HEAD_DIMS:
         raise ValueError(f"head dim {d} not built; supported: {SUPPORTED_HEAD_DIMS}")
     if t < 1 or b > 65535 or h > 65535:
@@ -65,6 +66,8 @@ def flash_rel_attention(q_u, q_v, k, v, p, lengths):
     """Launch the CUDA kernel on CUDA tensors; plain version on CPU tensors.
 
     Same arguments as ``flash_rel_attention_plain``; returns (B, H, T, d) f32.
+    The kernel has no backward: on the card a call with grad enabled on an
+    input that requires grad raises ValueError.
     """
     if q_u.device.type == "cpu":
         return flash_rel_attention_plain(q_u, q_v, k, v, p, lengths)

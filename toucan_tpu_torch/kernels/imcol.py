@@ -190,17 +190,8 @@ def _smem_bytes(mode: str, c: int, n_s: int, margin: int, k_max: int) -> int:
     return 4 * ((n_s + 2 * margin) * (c // EPW[mode] + 1) + k_max * _KW * cot + _NT // 32)
 
 
-def imcol_stage(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE) -> torch.Tensor:
-    """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
-
-    x (B, T, C) f32 contiguous with C in (32, 64, 128) on the card; ``st``
-    from ``prepare_imcol_stage``; ``fold`` the stage's time fold
-    (``imcol_fold``).  Returns (B, T, C) f32.
-    """
-    if x.device.type == "cpu":
-        return imcol_stage_plain(x, st, fold, tile)
-    if x.device.type != "cuda":
-        raise ValueError(f"imcol_stage takes cuda or cpu tensors, got {x.device}")
+def _check(x: torch.Tensor, st: ImcolStage, fold: int):
+    """What the kernel needs of x and st; raises ValueError before a launch."""
     c = st.channels
     if x.dim() != 3 or x.shape[-1] != c:
         raise ValueError(f"x must be (B, T, {c}), got {tuple(x.shape)}")
@@ -213,9 +204,28 @@ def imcol_stage(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE) ->
     ks, ds = st.kernel_sizes, st.dilations
     if len(ks) != 3 or len(ds) != 3 or list(ks) != sorted(ks) or list(ds) != sorted(ds):
         raise ValueError("the kernel takes 3 stacks x 3 rounds, ascending")
+    if x.shape[1] % fold:
+        raise ValueError(f"T = {x.shape[1]} is not a multiple of the fold {fold}")
+    build.check_no_grad("imcol_stage", x=x, scale=st.scale, bias=st.bias)
+
+
+def imcol_stage(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE) -> torch.Tensor:
+    """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
+
+    x (B, T, C) f32 contiguous with C in (32, 64, 128) on the card; ``st``
+    from ``prepare_imcol_stage``; ``fold`` the stage's time fold
+    (``imcol_fold``).  Returns (B, T, C) f32.  The kernel has no backward:
+    on the card a call with grad enabled on an input that requires grad
+    raises ValueError.
+    """
+    if x.device.type == "cpu":
+        return imcol_stage_plain(x, st, fold, tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"imcol_stage takes cuda or cpu tensors, got {x.device}")
+    _check(x, st, fold)
+    c = st.channels
+    ks, ds = st.kernel_sizes, st.dilations
     b, t, _ = x.shape
-    if t % fold:
-        raise ValueError(f"T = {t} is not a multiple of the fold {fold}")
     halo = imcol_halo(ks, ds, fold)
     step, left = tile * fold, halo * fold
     n_s = step + 2 * left

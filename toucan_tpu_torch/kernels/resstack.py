@@ -221,7 +221,9 @@ def tiling_for(x: torch.Tensor, sw: StageWeights) -> StageTiling:
 def hifigan_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
     """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
 
-    x (B, T, C) f32 contiguous; returns (B, T, C) f32.
+    x (B, T, C) f32 contiguous; returns (B, T, C) f32.  The kernel has no
+    backward: on the card a call with grad enabled on an input that requires
+    grad raises ValueError.
     """
     if x.device.type == "cpu":
         return hifigan_stage_plain(x, sw)
@@ -267,3 +269,4 @@ def _check(x: torch.Tensor, sw: StageWeights):
             list(sw.dilations) != sorted(sw.dilations):
         raise ValueError("kernel sizes and dilations must be ascending")
     build.check_aligned("hifigan_stage", x=x)
+    build.check_no_grad("hifigan_stage", x=x, w=sw.w, b=sw.b)

@@ -21,12 +21,15 @@ The JAX kernel quantizes the time-folded weights per output column; those
 column scales equal the per-output-channel scales of the unfolded weight
 (a folded column holds every tap and input channel of its output channel
 once, among zeros), so the port quantizes the unfolded weight and gets the
-same int8 values.
+same int8 values.  ``stage_tiling`` picks each launch's cluster and time
+tiles.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -34,13 +37,21 @@ import torch
 import torch.nn.functional as F
 
 from toucan_tpu_torch.kernels import build
-from toucan_tpu_torch.kernels.resstack import StageWeights, stage_halo
+from toucan_tpu_torch.kernels.resstack import StageWeights, _tile_cost, stage_halo
 
 MODES = ("int8", "bf16")
 _MODE_ID = {"int8": 0, "bf16": 1}
 EPW = {"int8": 4, "bf16": 2}      # elements per 32-bit word of packed weights
 SMEM_LIMIT = 232448          # bytes of shared memory a block may use (H100)
-_KW = 8                      # 32-bit words of input channels staged per step
+ONE_BLOCK_SMEM = 118784      # launched with at least this, a block has its SM to itself
+MIN_TILE = 8
+MAX_CLUSTER = 4              # blocks per tile at most
+# the kernel's geometry (csrc/hifigan_stage_q.cu)
+_RT = 256                    # output rows per pass: 8 warps x 32 rows
+_COT = 32                    # output channels per pass
+_ROW_PAD = 4                 # words of padding per operand row
+_WROW = 12                   # words per staged weight row (8, padded)
+_NSTAGE = 2                  # weight staging buffers
 
 
 @dataclass(frozen=True)
@@ -48,12 +59,12 @@ class QuantizedStage:
     """One stage's 18 convs prepared for a mode, in the packed conv order of
     ``StageWeights``.
 
-    ``w`` is flat: per conv (k, C_in/e, C_out, e), e consecutive input
+    ``w`` is flat: per conv (k, C_out, C_in/e, e), e consecutive input
     channels of one output channel per 32-bit word (int8: e = 4, bf16:
-    e = 2).  ``qin`` (18,) holds 127/a of each dilated conv's input (int8;
-    1 for bf16), ``deq`` (18, C) the factor on each conv's sum and ``bias``
-    (18, C) the bias added after it (the dilated conv's prescaled by 127/a
-    of the next conv's input).
+    e = 2; see ``pack_rows``).  ``qin`` (18,) holds 127/a of each dilated
+    conv's input (int8; 1 for bf16), ``deq`` (18, C) the factor on each
+    conv's sum and ``bias`` (18, C) the bias added after it (the dilated
+    conv's prescaled by 127/a of the next conv's input).
     """
 
     mode: str
@@ -68,12 +79,19 @@ class QuantizedStage:
 
     def conv_weights(self):
         """(weight (C_out, C_in, k) as float32 values, dilation) per conv."""
-        return unpack_words(self.w, self.mode, self.channels, self.kernel_sizes, self.dilations)
+        off, c = 0, self.channels
+        for k in self.kernel_sizes:
+            for d in self.dilations:
+                for dd in (d, 1):
+                    wk = self.w[off:off + k * c * c].view(k, c, c)
+                    yield wk.permute(1, 2, 0).float(), dd
+                    off += k * c * c
 
 
 def unpack_words(w: torch.Tensor, mode: str, c: int, kernel_sizes, dilations):
     """(weight (C_out, C_in, k) as float32 values, dilation) per conv of a
-    stage's flat packed weights (see ``pack_words``), in packed order."""
+    stage's flat packed weights in K4's layout (see ``pack_words``), in
+    packed order."""
     off = 0
     for k in kernel_sizes:
         for d in dilations:
@@ -106,9 +124,16 @@ def quantize_weight(w: torch.Tensor):
 
 
 def pack_words(w: torch.Tensor, e: int) -> torch.Tensor:
-    """(C_out, C_in, k) -> flat (k, C_in/e, C_out, e)."""
+    """(C_out, C_in, k) -> flat (k, C_in/e, C_out, e): K4's layout."""
     c_out, c_in, k = w.shape
     return w.permute(2, 1, 0).reshape(k, c_in // e, e, c_out).permute(0, 1, 3, 2).reshape(-1)
+
+
+def pack_rows(w: torch.Tensor) -> torch.Tensor:
+    """(C_out, C_in, k) -> flat (k, C_out, C_in): K3's layout.  Viewed as
+    32-bit words, (k, C_out, C_in/e) with e consecutive input channels per
+    word, one output channel's words contiguous: the rows of K3's B tiles."""
+    return w.permute(2, 0, 1).reshape(-1)
 
 
 def quantize_stage(sw: StageWeights, mode: str,
@@ -130,12 +155,12 @@ def quantize_stage(sw: StageWeights, mode: str,
             a1, a2 = act_scales[n].float(), act_scales[n + 1].float()
             w81, cs1 = quantize_weight(w1)
             w82, cs2 = quantize_weight(w2)
-            ws += [pack_words(w81, 4), pack_words(w82, 4)]
+            ws += [pack_rows(w81), pack_rows(w82)]
             qin += [ieee_div(127.0, a1), torch.ones((), device=a1.device)]
             deq += [ieee_div(cs1 * a1, 127.0) * ieee_div(127.0, a2), ieee_div(cs2 * a2, 127.0)]
             bias += [b1 * ieee_div(127.0, a2), b2]
         else:
-            ws += [pack_words(w.to(torch.bfloat16), 2) for w in (w1, w2)]
+            ws += [pack_rows(w.to(torch.bfloat16)) for w in (w1, w2)]
             qin += [ones[0], ones[0]]
             deq += [ones, ones]
             bias += [b1, b2]
@@ -206,50 +231,137 @@ def quantized_stage_plain(x: torch.Tensor, qs: QuantizedStage) -> torch.Tensor:
 
 def _smem_bytes(mode: str, c: int, tile: int, halo: int, k_max: int) -> int:
     """The kernel's dynamic shared memory: two quantized (tile + 2 halo) x C
-    operand tiles (rows padded by one word) and one step of staged weights."""
-    words_per_row = c // EPW[mode] + 1
-    cot = 64 if c % 64 == 0 else 32
-    return 4 * (2 * (tile + 2 * halo) * words_per_row + k_max * _KW * cot)
+    operand tiles (rows padded by 16 bytes) and two steps of staged weights
+    (k_max taps x 32 output channels x 8 words, rows padded by 16 bytes)."""
+    words_per_row = c // EPW[mode] + _ROW_PAD
+    return 4 * (2 * (tile + 2 * halo) * words_per_row + _NSTAGE * k_max * _COT * _WROW)
 
 
-def _blocks_per_sm(smem: int) -> int:
-    return max(1, min(8, (SMEM_LIMIT + 1024) // (smem + 1024)))
+def max_tile(mode: str, c: int, halo: int, k_max: int) -> int:
+    """The longest tile whose operands fit in shared memory."""
+    words_per_row = c // EPW[mode] + _ROW_PAD
+    weights = _NSTAGE * k_max * _COT * _WROW
+    return (SMEM_LIMIT // 4 - weights) // (2 * words_per_row) - 2 * halo
 
 
-def stage_tile(mode: str, b: int, t: int, c: int, halo: int, k_max: int, n_sm: int) -> int:
-    """Output rows per tile: among the tiles whose operands fit in shared
-    memory, the one with the least (waves x rows staged per tile)."""
+@dataclass(frozen=True)
+class QuantizedTiling:
+    """How one K3 launch cuts its work (see ``stage_tiling``)."""
+
+    tile: int        # the longest tile's output rows (tiles differ by at most 1 row)
+    n_tiles: int     # tiles per sample
+    cluster: int     # blocks per tile; block r takes channels [r C/cluster, (r+1) C/cluster)
+    clusters: int    # clusters launched (persistent: each walks tiles in turn)
+    halo: int        # recomputed rows per side
+    jobs: int        # B x n_tiles
+    smem: int        # dynamic shared memory of a block, bytes
+
+    @property
+    def grid(self) -> int:
+        return self.clusters * self.cluster
+
+
+def _cheapest(mode, b, t, c, n_sm, kernel_sizes, dilations, in_flight, clusters):
+    """The cheapest tiling over the given cluster sizes (see ``stage_tiling``)."""
+    halo = stage_halo(kernel_sizes, dilations)
+    top = max_tile(mode, c, halo, kernel_sizes[-1])
+    floor = 2 * len(dilations) * sum(kernel_sizes)   # one pass per conv
+    most = max(1, t // MIN_TILE)                     # tiles per sample
     best = None
-    for tile in (64, 128, 256, 512, 1024, 2048):
-        smem = _smem_bytes(mode, c, tile, halo, k_max)
-        if smem > SMEM_LIMIT:
-            break
-        per_wave = n_sm * _blocks_per_sm(smem)
-        jobs = b * -(-t // tile)
-        cost = -(-jobs // per_wave) * _blocks_per_sm(smem) * (tile + 2 * halo)
-        if best is None or cost <= best[0]:
-            best = (cost, tile)
+    for cl in clusters:
+        slots = max(1, in_flight.get(cl, n_sm // cl))
+        waves = 0
+        while best is None or waves * floor < best[0][0] * cl:
+            waves += 1
+            n_tiles = min(-(-waves * slots // b), most)
+            tile = -(-t // n_tiles)
+            if tile <= top:
+                jobs = b * n_tiles
+                n_waves = -(-jobs // slots)
+                cost = n_waves * _tile_cost(tile, _RT, kernel_sizes, dilations)
+                est = (cost / cl, n_waves, cl)
+                if best is None or est < best[0]:
+                    smem = max(_smem_bytes(mode, c, tile, halo, kernel_sizes[-1]), ONE_BLOCK_SMEM)
+                    best = (est, QuantizedTiling(tile, n_tiles, cl, min(jobs, slots), halo, jobs,
+                                                 smem))
+            if n_tiles == most:
+                break
     return best[1]
 
 
-def quantized_stage(x: torch.Tensor, sw, mode: Optional[str] = None,
-                    act_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
+@functools.lru_cache(maxsize=512)
+def stage_tiling(mode: str, b: int, t: int, c: int, n_sm: int, kernel_sizes, dilations,
+                 clusters_in_flight=None, max_cluster: int = MAX_CLUSTER) -> QuantizedTiling:
+    """Pick K3's cluster and time tiles for one call, one block per SM.
 
-    x (B, T, C) f32 contiguous.  ``sw`` is a ``StageWeights`` (quantized
-    here for ``mode``, with ``act_scales`` for int8) or a ``QuantizedStage``
-    from ``quantize_stage``.  Returns (B, T, C) f32.
-    """
-    if isinstance(sw, QuantizedStage):
-        if mode not in (None, sw.mode):
-            raise ValueError(f"stage was quantized for {sw.mode}, not {mode}")
-        qs = sw
-    else:
-        qs = quantize_stage(sw, mode, act_scales)
-    if x.device.type == "cpu":
-        return quantized_stage_plain(x, qs)
-    if x.device.type != "cuda":
-        raise ValueError(f"quantized_stage takes cuda or cpu tensors, got {x.device}")
+    For a cluster size (1, 2 or 4 blocks, C / cluster a multiple of 32) and
+    each number of waves w, each sample is cut into ceil(w x slots / B)
+    tiles of equal length (to 1 row), so a wave gives every cluster slot a
+    tile; ``clusters_in_flight``: ((cluster, clusters the card runs at
+    once), ...) as the device reports it, default n_sm // cluster.  The tile
+    must fit in shared memory (``max_tile``).  The estimate is waves x
+    ``_tile_cost`` (passes of 256 rows over each conv's valid rows, which
+    count the recomputed halo) / cluster, and the cheapest wins (ties:
+    fewer waves, then smaller clusters).
+
+    One block per tile comes first.  A tile is split over a cluster (at
+    most ``max_cluster`` blocks) only where one block per tile leaves tiles
+    shorter than the halo, so that each would recompute over 3x its own
+    rows: on the H100 the split halved stage 0 at 512 frames (32-row tiles)
+    and gained nothing at stage 1 (187-row tiles), where the operand each
+    block builds for all C and the cluster barriers cost what the split
+    saves.  Raises ValueError for a width whose operands do not fit: int8
+    takes every C % 32 == 0 up to 512, bf16 up to 352."""
+    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    halo = stage_halo(kernel_sizes, dilations)
+    if c % _COT or max_tile(mode, c, halo, kernel_sizes[-1]) < MIN_TILE:
+        raise ValueError(f"K3 {mode} takes C % 32 == 0 whose operands fit in shared memory, "
+                         f"got {c}")
+    in_flight = dict(clusters_in_flight or ())
+    args = (mode, b, t, c, n_sm, kernel_sizes, dilations, in_flight)
+    single = _cheapest(*args, (1,))
+    clusters = [cl for cl in (1, 2, 4) if cl <= max_cluster and c % (cl * _COT) == 0]
+    if single.tile >= halo or len(clusters) == 1:
+        return single
+    return _cheapest(*args, clusters)
+
+
+_max_clusters_cache: dict = {}
+
+
+def _clusters_in_flight(device, mode):
+    """((cluster, clusters the device runs at once), ...) for K3's options,
+    at one block per SM."""
+    key = (device.index, mode)
+    if key not in _max_clusters_cache:
+        lib = build.load("hifigan_stage_q")
+        fn = lib.hifigan_stage_q_max_clusters
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+        pairs = []
+        for cl in (1, 2, 4):
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = fn(_MODE_ID[mode], cl, ONE_BLOCK_SMEM, ctypes.addressof(n))
+            build.check(lib, err, "hifigan_stage_q_max_clusters")
+            pairs.append((cl, n.value))
+        _max_clusters_cache[key] = tuple(pairs)
+    return _max_clusters_cache[key]
+
+
+def tiling_for(x: torch.Tensor, qs: QuantizedStage,
+               max_cluster: int = MAX_CLUSTER) -> QuantizedTiling:
+    """The tiling ``quantized_stage`` launches x with on its card."""
+    b, t, c = x.shape
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return stage_tiling(qs.mode, b, t, c, n_sm, qs.kernel_sizes, qs.dilations,
+                        _clusters_in_flight(x.device, qs.mode), max_cluster)
+
+
+def _check(x: torch.Tensor, qs: QuantizedStage):
+    """What the kernel needs of x and qs; raises ValueError before a launch."""
     c = qs.channels
     if x.dim() != 3 or x.shape[-1] != c:
         raise ValueError(f"x must be (B, T, {c}), got {tuple(x.shape)}")
@@ -262,26 +374,48 @@ def quantized_stage(x: torch.Tensor, sw, mode: Optional[str] = None,
     if list(qs.kernel_sizes) != sorted(qs.kernel_sizes) or \
             list(qs.dilations) != sorted(qs.dilations):
         raise ValueError("kernel sizes and dilations must be ascending")
-    b, t, _ = x.shape
+    build.check_aligned("quantized_stage", x=x, w=qs.w, deq=qs.deq, bias=qs.bias)
+    build.check_no_grad("quantized_stage", x=x, qin=qs.qin, deq=qs.deq, bias=qs.bias)
+
+
+def quantized_stage(x: torch.Tensor, sw, mode: Optional[str] = None,
+                    act_scales: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
+
+    x (B, T, C) f32 contiguous.  ``sw`` is a ``StageWeights`` (quantized
+    here for ``mode``, with ``act_scales`` for int8) or a ``QuantizedStage``
+    from ``quantize_stage``.  Returns (B, T, C) f32.  The kernel has no
+    backward: on the card a call with grad enabled on an input that
+    requires grad raises ValueError.
+    """
+    if isinstance(sw, QuantizedStage):
+        if mode not in (None, sw.mode):
+            raise ValueError(f"stage was quantized for {sw.mode}, not {mode}")
+        qs = sw
+    else:
+        qs = quantize_stage(sw, mode, act_scales)
+    if x.device.type == "cpu":
+        return quantized_stage_plain(x, qs)
+    if x.device.type != "cuda":
+        raise ValueError(f"quantized_stage takes cuda or cpu tensors, got {x.device}")
+    _check(x, qs)
+    b, t, c = x.shape
     ks, ds = qs.kernel_sizes, qs.dilations
-    halo = stage_halo(ks, ds)
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tile = stage_tile(qs.mode, b, t, c, halo, ks[-1], n_sm)
-    smem = _smem_bytes(qs.mode, c, tile, halo, ks[-1])
-    grid = min(b * -(-t // tile), n_sm * _blocks_per_sm(smem))
+    tl = tiling_for(x, qs)
     out = torch.empty_like(x)
-    scratch = torch.empty((grid, tile + 2 * halo, c), device=x.device, dtype=torch.bfloat16)
+    scratch = torch.empty((tl.clusters, tl.tile + 2 * tl.halo, c), device=x.device,
+                          dtype=torch.bfloat16)
     lib = build.load("hifigan_stage_q")
     fn = lib.hifigan_stage_q
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 13
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7 + [ctypes.c_int] * 15
                    + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(_MODE_ID[qs.mode], x.data_ptr(), qs.w.data_ptr(), qs.qin.data_ptr(),
                  qs.deq.data_ptr(), qs.bias.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                 b, t, c, ks[0], ks[1], ks[2], ds[0], ds[1], ds[2], tile, halo, grid, smem,
-                 qs.slope, stream)
+                 b, t, c, ks[0], ks[1], ks[2], ds[0], ds[1], ds[2], tl.tile, tl.halo,
+                 tl.n_tiles, tl.cluster, tl.grid, tl.smem, qs.slope, stream)
     build.check(lib, err, "quantized_stage")
     quantized_stage.launches += 1
     return out
