@@ -10,8 +10,8 @@ Phases, each reported on its own lines:
 1. build: nvcc compiles every kernel of the port for sm_90a, one process
    per source, all at once, and prints ptxas's registers / shared memory /
    spills, and the count of tensor-core instructions (HMMA, HGMMA, IMMA)
-   and of ``__dp4a`` (IDP) in the SASS of K1, K2 and K3: K1 and K2 must
-   hold HMMA, K3 IMMA (int8) and HMMA (bf16);
+   and of ``__dp4a`` (IDP) in the SASS of K1-K4: K1 and K2 must hold
+   HMMA, K3 and K4 IMMA (int8) and HMMA (bf16), and K4 no IDP;
 2. k1: the rel-pos flash attention kernel against its plain PyTorch version
    at B=2, H=4, d=48, T in (128, 2048), and at the main path's encoder
    (B=1, T=128) and decoder (B=1, T=2048, 110 and 2048 valid keys), with
@@ -31,13 +31,18 @@ Phases, each reported on its own lines:
    are timed in turns;
 6. k4: the im2col HiFiGAN stage kernel, int8 and bf16, against its plain
    versions at the shapes of stages 1-3 at 512 mel frames, with K2's and
-   K3 int8's times on the same stage beside it;
+   K3 int8's times on the same stage beside it, the tiling each launch took
+   (cluster, blocks, walk over K, scratch bytes) and the count of elements
+   that differ from the plain version (int8: none); the launch on clusters
+   and the one with one block per window must give the same output, and
+   the two are timed in turns;
 7. shapes: K1, K2 (also at unit gain), K3 (int8), K4 (int8, stages 1-3)
    and K5 against their plain versions at the shapes the main path gives
    them: batch size,
    sequence lengths and stage lengths of the ``__call__`` on 110 phones
    (2048 vocoder frames), of the call with 8 frames per phone (896) and of
-   ``synthesize_batch`` (B = 4);
+   ``synthesize_batch`` (B = 4); and K4 (int8, bf16) at the widths of other
+   generators, C = 96 (fold 1) and 48 (fold 2, K walked flat in int8);
    grad: each of K1-K5's wrappers on CUDA inputs that require grad, with
    grad enabled, must raise ValueError without launching (the kernels have
    no backward);
@@ -93,6 +98,7 @@ from toucan_tpu_torch.frontend.text import TextFrontend
 from toucan_tpu_torch.infer.interface import (FRAMES_PER_PHONE, PHONE_BUCKET,
                                               ToucanTTSInterface, _round_up)
 from toucan_tpu_torch.kernels import build
+from toucan_tpu_torch.kernels import imcol as imcol_module
 from toucan_tpu_torch.kernels import stage as stage_module
 from toucan_tpu_torch.kernels.aliasfree import alias_free_snake, alias_free_snake_plain
 from toucan_tpu_torch.kernels.flash_attention import (flash_rel_attention,
@@ -183,9 +189,14 @@ def bound(flops, nbytes, peak=F32_PEAK):
 
 
 # the kernels that run on the tensor cores, and the SASS instructions each
-# must hold: K1 and K2 split TF32 (HMMA), K3 int8 (IMMA) and bf16 (HMMA)
+# must hold: K1 and K2 split TF32 (HMMA), K3 and K4 int8 (IMMA) and bf16
+# (HMMA)
 TENSOR_CORE_KERNELS = {"flash_rel_attention": ("HMMA",), "hifigan_stage": ("HMMA",),
-                       "hifigan_stage_q": ("IMMA", "HMMA")}
+                       "hifigan_stage_q": ("IMMA", "HMMA"), "hifigan_imcol": ("IMMA", "HMMA")}
+# the kernels whose int8 products must all be on the tensor cores: no IDP
+NO_DP4A = ("hifigan_imcol",)
+# K4 at the widths of other generators (192 and 384 channels), C: fold
+K4_WIDTHS = {96: 1, 48: 2}
 
 
 def phase_build():
@@ -209,6 +220,8 @@ def phase_build():
         missing = [op for op in needed if not counts[op]]
         if missing:
             raise AssertionError(f"{name} has no {', '.join(missing)} instruction in its SASS")
+        if name in NO_DP4A and counts["IDP"]:
+            raise AssertionError(f"{name} still runs __dp4a (IDP) on the CUDA cores")
 
 
 def k1_inputs(gen, dev, b, h, d, t, lengths):
@@ -518,12 +531,70 @@ def k4_error(x, st):
     return diff.max().item(), want.abs().max().item(), int((diff > 0).sum()), diff.numel()
 
 
+def check_k4(what, mode, err, peak, n_diff):
+    """int8 bit for bit (the same integer sums and the same f32 chain in the
+    same order), bf16 within TOL_K4 of the peak."""
+    if (mode == "int8" and n_diff) or not err <= TOL_K4[mode] * peak:
+        raise AssertionError(f"K4 {mode} disagrees with its plain version: {what} "
+                             f"({n_diff} elements differ, max abs err {err:.3e})")
+
+
+def k4_tiling(x, st):
+    """The tiling a K4 launch on x takes, for the log."""
+    tl = imcol_module.tiling_for(x, st, imcol_fold(x.shape[-1]))
+    return (f"cluster={tl.cluster} blocks={tl.grid} per_sm={tl.per_sm} windows={tl.windows} "
+            f"k_walk={'flat' if tl.flat else 'taps'} weight_buffers={tl.wslots} "
+            f"smem_kb={tl.smem / 1024:.1f} scratch_mb={tl.scratch_bytes / 1e6:.2f}")
+
+
+def k4_clusters(clusters, fn):
+    """fn() with K4's launches taking only the given cluster sizes."""
+    chosen = imcol_module.tiling_for
+    imcol_module.tiling_for = functools.partial(chosen, clusters=clusters)
+    try:
+        return fn()
+    finally:
+        imcol_module.tiling_for = chosen
+
+
+def k4_cluster_ab(x, st):
+    """The chooser's launch against the other kind: one block per window
+    where it takes clusters, the best split (2 or 4 blocks) where it takes
+    one block.  The two must give the same output bit for bit where they
+    walk K alike (each output's sums run in the same order; int8 sums are
+    exact in any order), and are timed in turns (chosen, other, other,
+    chosen).  Returns (chosen ms, other ms, the other's tiling, what was
+    compared)."""
+    fold = imcol_fold(x.shape[-1])
+    chosen = imcol_module.tiling_for(x, st, fold)
+    other = (1,) if chosen.cluster > 1 else (2, 4)
+
+    def run():
+        return imcol_stage(x, st, fold)
+    same_walk = k4_clusters(other, lambda: imcol_module.tiling_for(x, st, fold)).flat == chosen.flat
+    got, want = k4_clusters(other, run), run()
+    if st.mode == "int8" or same_walk:
+        if not torch.equal(got, want):
+            raise AssertionError("K4 on clusters differs from K4 with one block per window")
+        agree = "output equal"
+    else:
+        check_k4("the other launch", st.mode, (got - want).abs().max().item(),
+                 want.abs().max().item(), 0)
+        agree = "K walked otherwise, output within TOL_K4"
+    a = time_ms(run, 5)
+    b = k4_clusters(other, lambda: time_ms(run, 5))
+    b2 = k4_clusters(other, lambda: time_ms(run, 5))
+    a2 = time_ms(run, 5)
+    return (a + a2) / 2, (b + b2) / 2, k4_clusters(other, lambda: k4_tiling(x, st)), agree
+
+
 def phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms):
-    """K4 in both modes at the shapes of stages 1-3 of 512 frames.  The
-    bound counts least work: 252 T C^2 operations (the halo rows each
-    window recomputes do not count) at the int8 (or bf16) tensor-core rate,
-    against f32 in and out plus the weights.  Returns the int8 totals (the
-    main path's mode)."""
+    """K4 in both modes at the shapes of stages 1-3 of 512 frames, each with
+    the tiling its launch took, and timed in turns against the other kind
+    of launch (clusters or one block per window).  The bound counts least
+    work: 252 T C^2 operations (the halo rows each window recomputes do not
+    count) at the int8 (or bf16) tensor-core rate, against f32 in and out
+    plus the weights.  Returns the int8 totals (the main path's mode)."""
     totals = {m: dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0, err=0.0) for m in ("int8", "bf16")}
     for i in K4_STAGES:
         sw = vocoder.stage_weights(i)
@@ -534,7 +605,8 @@ def phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms):
             st = prepare_imcol_stage(sw, mode)
             check_prepared_as_on_cpu(f"K4 {mode} stage {i}", sw, st, prepare_imcol_stage, mode)
             err, peak, n_diff, n = k4_error(x, st)
-            ms = time_ms(lambda: imcol_stage(x, st, fold), 5)
+            clustered = imcol_module.tiling_for(x, st, fold).cluster > 1
+            ms, other_ms, other_tiling, agree = k4_cluster_ab(x, st)
             plain_ms = time_ms(lambda: imcol_stage_plain(x, st, fold), 1)
             flops = 252 * t * c * c
             nbytes = (8 * t * c + st.w.numel() * st.w.element_size()
@@ -545,9 +617,11 @@ def phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms):
                       f"prepared as on the CPU) "
                       f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} k2_ms={k2_stage_ms[i]:.3f} "
                       f"k3_int8_ms={k3_stage_ms[i]:.3f} bound_ms={bound_ms:.4f} ({bound_by}) "
-                      f"achieved_tops={flops / ms / 1e9:.2f}")
-            if not err <= TOL_K4[mode] * peak:
-                raise AssertionError(f"K4 {mode} disagrees with its plain version at stage {i}")
+                      f"share_of_bound={bound_ms / ms:.4f} achieved_tops={flops / ms / 1e9:.2f} "
+                      f"{k4_tiling(x, st)}; "
+                      f"{'one block per window' if clustered else 'on clusters'} "
+                      f"({other_tiling}): {other_ms:.3f} ms, {agree}, timed in turns")
+            check_k4(f"stage {i}", mode, err, peak, n_diff)
             tot["ms"] += ms
             tot["plain_ms"] += plain_ms
             tot["flops"] += flops
@@ -562,6 +636,28 @@ def phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms):
     tot = totals["int8"]
     return dict(ms=tot["ms"], plain_ms=tot["plain_ms"], bound_ms=tot["bound_ms"],
                 bound_by=tot["bound_by"], library_ms=None, max_abs_err=tot["err"])
+
+
+def k4_widths(dev, gen, row):
+    """K4 in both modes at the widths of other generators (K4_WIDTHS), on
+    stage weights at unit gain (a 384-channel generator's stages 1 and 2 at
+    512 frames); the int8 error folds into ``row``."""
+    for c, fold in K4_WIDTHS.items():
+        sw = pack_stage([(torch.randn(c, c, k, generator=gen, device=dev) / math.sqrt(k * c),
+                          0.1 * torch.randn(c, generator=gen, device=dev))
+                         for k in (3, 7, 11) for _ in range(6)], c, (3, 7, 11), (1, 3, 5), 0.1)
+        t = (48 if fold == 1 else 192) * K2_FRAMES
+        x = torch.randn(1, t, c, generator=gen, device=dev)
+        for mode in ("int8", "bf16"):
+            st = prepare_imcol_stage(sw, mode)
+            err, peak, n_diff, n = k4_error(x, st)
+            ms = time_ms(lambda: imcol_stage(x, st, fold), 3)
+            log("shapes", f"k4 {mode} at C={c} fold={fold} B=1 T={t}: max_abs_err={err:.3e} "
+                          f"(max|out| {peak:.3e}, {n_diff} of {n} elements differ) "
+                          f"kernel_ms={ms:.3f} {k4_tiling(x, st)}")
+            check_k4(f"C={c}", mode, err, peak, n_diff)
+            if mode == "int8":
+                row["max_abs_err"] = max(row["max_abs_err"], err)
 
 
 def main_path_cases():
@@ -582,8 +678,9 @@ def main_path_cases():
 def phase_shapes(dev, gen, vocoder, unit, rows):
     """K1, K2 (also on ``unit``, the stages at unit gain), K3 (int8, scales
     calibrated on the same input), K4 (int8, stages 1-3) and K5 against
-    their plain versions at the shapes the main path gives them; each error
-    folds into its kernel's row of ``rows``."""
+    their plain versions at the shapes the main path gives them, then K4 at
+    other generators' widths (``k4_widths``); each error folds into its
+    kernel's row of ``rows``."""
     cfg = ToucanTTSConfig()
     h, d = cfg.aheads, cfg.adim // cfg.aheads
     for name, counts, bucket, frames, mel_lens in main_path_cases():
@@ -606,9 +703,10 @@ def phase_shapes(dev, gen, vocoder, unit, rows):
             k3_tl = k3_tiling(x, qs)
             err4, peak4 = 0.0, 0.0
             if i in K4_STAGES:
-                err4, peak4, n_diff4, _ = k4_error(x, prepare_imcol_stage(sw, "int8"))
-                if not err4 <= TOL_K4["int8"] * peak4:
-                    raise AssertionError(f"K4 disagrees with its plain version: {name}, stage {i}")
+                st4 = prepare_imcol_stage(sw, "int8")
+                err4, peak4, n_diff4, _ = k4_error(x, st4)
+                k4_tl = k4_tiling(x, st4)
+                check_k4(f"{name}, stage {i}", "int8", err4, peak4, n_diff4)
             del x
             err5 = k5_error(*k5_inputs(gen, dev, b, t, c))
             log("shapes", f"{name}: stage {i} B={b} T={t} C={c} max_abs_err k2={err2:.3e} "
@@ -616,8 +714,8 @@ def phase_shapes(dev, gen, vocoder, unit, rows):
                           f"excess {excess_u:.2e}) "
                           f"k3 int8={err3:.3e} (max|out| {peak:.3e}, {n_diff} of {n} differ; "
                           f"{k3_tl}) "
-                          + (f"k4 int8={err4:.3e} (max|out| {peak4:.3e}, {n_diff4} differ) "
-                             if i in K4_STAGES else "") + f"k5={err5:.3e}")
+                          + (f"k4 int8={err4:.3e} (max|out| {peak4:.3e}, {n_diff4} differ; "
+                             f"{k4_tl}) " if i in K4_STAGES else "") + f"k5={err5:.3e}")
             if not (excess <= TOL_K2[0] and excess_u <= TOL_K2[0]):
                 raise AssertionError(f"K2 disagrees with its plain version: {name}, stage {i}")
             if not err3 <= TOL_K3["int8"] * peak:
@@ -626,6 +724,7 @@ def phase_shapes(dev, gen, vocoder, unit, rows):
                 raise AssertionError(f"K5 disagrees with its plain version: {name}, stage {i}")
             for k, err in (("k2", max(err2, err2_u)), ("k3", err3), ("k4", err4), ("k5", err5)):
                 rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err)
+    k4_widths(dev, gen, rows["k4"])
 
 
 WRAPPERS = {"k1": flash_rel_attention, "k2": hifigan_stage, "k3": quantized_stage,

@@ -29,7 +29,7 @@ for tree in other this this other; do
   (cd "$dir" && python3 chip_smoke.py) > "$log" 2>&1
   rc=$?
   echo "=== run $n ($tree, $dir): exit $rc in $(( $(date +%s) - start )) s"
-  grep -E "^\[(k3|k4)\] .*(stage|four stages)|^\[k2\] four stages|^\[build\] hifigan_stage_q: instructions|one __call__|^\[grad\]|^\[main\] int8 against" "$log"
+  grep -E "^\[(k3|k4)\] .*(stage|four stages)|^\[k2\] four stages|^\[build\] hifigan_(stage_q|imcol): instructions|^\[shapes\] k4 |one __call__|^\[grad\]|^\[main\] int8 against" "$log"
   tail -n 3 "$log"
   [ "$rc" -ne 0 ] && status=1
 done

@@ -5,8 +5,9 @@ against the JAX ``fused_imcol_resstacks`` in interpret mode on the same
 inputs, made as ``tests/test_pallas_imcol.py`` makes them, with T not a
 multiple of the tile: int8 within 1e-5 of max|y| (the same int8 weights,
 the same per-window scales, exact integer sums; only f32 rounding of the
-dequant chain can differ), bf16 within 1e-2 of max|y| (f32 sums of bf16
-products in another order, amplified through 18 convs of gain ~3).
+dequant chain can differ, see ``CONTRACTED``), bf16 within 1e-2 of max|y|
+(f32 sums of bf16 products in another order, amplified through 18 convs of
+gain ~3).
 
 Through the generator the conv kernels are scaled by 0.5: an int8 stage
 turns any f32 difference upstream (the transposed convs sum in another
@@ -34,6 +35,7 @@ from toucan_tpu.kernels.pallas_imcol import (build_imcol_weight, fused_imcol_res
                                              quantize_weight, stage_conv_specs)
 from toucan_tpu.models.vocoders.hifigan import HiFiGANGenerator as JaxHiFiGAN
 from toucan_tpu.models.vocoders.hifigan import calibrate_act_scales as jax_calibrate_act
+from toucan_tpu_torch.kernels import imcol as imcol_module
 from toucan_tpu_torch.kernels.imcol import (imcol_fold, imcol_halo, imcol_stage,
                                             imcol_stage_plain, prepare_imcol_stage)
 from toucan_tpu_torch.models.vocoders import hifigan as hifigan_mod
@@ -47,7 +49,7 @@ from test_torch_quantized_vocoder import _gain
 torch.set_num_threads(2)
 
 KS, DIL = (3, 7, 11), (1, 3, 5)
-CASES = [(1, 16, 200), (2, 16, 240), (4, 8, 400)]   # (fold, C, T), tile 32
+CASES = [(1, 16, 200), (2, 16, 240), (4, 8, 400), (2, 48, 240)]   # (fold, C, T), tile 32
 
 
 def _params(rng, c):
@@ -55,6 +57,22 @@ def _params(rng, c):
     return [[tuple(a.astype(np.float32) for a in (
         0.3 * rng.randn(k, c, c), 0.1 * rng.randn(c), 0.3 * rng.randn(k, c, c), 0.1 * rng.randn(c)))
         for _ in DIL] for k in KS]
+
+
+# XLA on the CPU contracts JAX's int8 dequant chain ``y * scale + b`` into
+# one FMA; the port's plain version and its CUDA kernel round twice, as the
+# JAX source reads.  At C = 48 and these weights (a stream up to 1.2e4) the
+# one-rounding differences flip int8 roundings downstream: the port misses
+# JAX by 3.2e-3 of the peak (1 830 of 23 040 elements over 1e-5), a tenth of
+# JAX's own int8 noise, while its chain rounded once (``_fused``) meets JAX
+# within 2e-7.  The narrower cases stay within 1e-5 either way.
+CONTRACTED = {(2, 48, 240)}
+
+
+def _fused(s, f, b):
+    """s * f + b rounded once, as an FMA rounds it: the product is exact in
+    float64 and the sum rounds there, then to f32."""
+    return (s.double() * f.double() + b.double()).float()
 
 
 @functools.lru_cache(maxsize=None)
@@ -90,11 +108,16 @@ def test_halo_is_the_pallas_kernels(fold):
 
 @pytest.mark.parametrize("fold,c,t", CASES)
 @pytest.mark.parametrize("mode", ["int8", "bf16"])
-def test_k4_plain_matches_pallas_interpret(fold, c, t, mode):
+def test_k4_plain_matches_pallas_interpret(fold, c, t, mode, monkeypatch):
     want = _jax_stage(fold, c, t, mode)
     got = _port_stage(fold, c, t, mode)
     peak = np.abs(want).max()
     assert got.shape == want.shape and peak > 1
+    if mode == "int8" and (fold, c, t) in CONTRACTED:
+        exact = _jax_stage(fold, c, t, "f32")
+        assert np.abs(got - want).max() <= np.abs(want - exact).max() / 10
+        monkeypatch.setattr(imcol_module, "_dequant", _fused)
+        got = _port_stage(fold, c, t, mode)
     assert np.abs(got - want).max() <= (1e-5 if mode == "int8" else 1e-2) * peak
     assert imcol_stage.launches == 0
 

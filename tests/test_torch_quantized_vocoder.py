@@ -14,6 +14,8 @@ Through the interfaces: scales at rtol 1e-5, the int8 wave within 1e-2 of
 JAX's and within 0.05 of the exact path (see ``_gain`` for the weights).
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -35,6 +37,7 @@ from toucan_tpu_torch.kernels.stage import (MIN_TILE, SMEM_LIMIT, _smem_bytes,
                                             calibrate_stage_scales, quantize_stage,
                                             quantized_stage, stage_tiling)
 from toucan_tpu_torch.models.toucan_tts import ToucanTTSConfig
+from toucan_tpu_torch.models.vocoders import hifigan as hifigan_mod
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator, calibrate_act_scales
 from toucan_tpu_torch.weights import hifigan_from_jax, toucan_tts_from_jax
@@ -273,3 +276,59 @@ def test_quantize_vocoder_rejects_bigvgan(pair):
                                use_g2p=False, device="cpu")
     with pytest.raises(ValueError, match="HiFiGAN"):
         iface.quantize_vocoder(calibration_mel=np.zeros((1, 8, 80), np.float32))
+
+
+@pytest.fixture(scope="module")
+def voc192():
+    """A 192-channel generator's seeded variables: stages of 96, 48, 24 and
+    12 channels, which the JAX generator folds to 96, 96, 120 and 120 lanes."""
+    return seeded_variables(JaxHiFiGAN(channels=192), np.random.RandomState(4),
+                            jnp.zeros((1, 10, 80)))
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_stage_mode_routes_as_jax(voc192, mode):
+    """The JAX generator gives its stage kernel only the stages whose folded
+    width is 128 or 256 (``toucan_tpu/models/vocoders/hifigan.py:243-244``):
+    at 192 channels none, so its int8 and bf16 waves are the exact one, and
+    its calibration returns no scale.  The port sent every stage to K3 and,
+    on its own calibration's scales, missed JAX's int8 wave by 1.0e-2 (of a
+    0.285 peak); routed as JAX routes, it meets the wave tolerance."""
+    mel = np.random.RandomState(7).randn(1, 10, 80).astype(np.float32)
+    scales = jax.jit(lambda v, m: jax_calibrate_act(JaxHiFiGAN(channels=192), v, m))(voc192, mel)
+    assert scales == {}
+    want = np.asarray(jax.jit(lambda v, m: JaxHiFiGAN(channels=192, stage_mode=mode).apply(
+        v, m, act_scales=scales))(voc192, mel))[..., 0]
+    gen = HiFiGANGenerator(channels=192)
+    gen.load_state_dict(hifigan_from_jax(voc192))
+    gen.eval()
+    port_scales = calibrate_act_scales(gen, torch.from_numpy(mel))
+    gen.stage_mode = mode
+    got = gen(torch.from_numpy(mel), act_scales=port_scales)[..., 0].numpy()
+    assert got.shape == want.shape == (1, 10 * 384)
+    assert np.abs(got - want).max() <= 2e-5
+
+
+def test_stage_mode_routing_per_stage(monkeypatch):
+    """Per stage: K3 where the folded width is 128 or 256 (every stage of
+    the released 512 channels), else the im2col rule (K4 at the stages of
+    ``imcol_stages`` with at most 128 channels), else K2."""
+    calls = []
+    for name in ("hifigan_stage", "quantized_stage", "imcol_stage"):
+        real = getattr(hifigan_mod, name)
+        monkeypatch.setattr(hifigan_mod, name, functools.partial(
+            lambda real, name, x, *a: calls.append(name) or real(x, *a), real, name))
+    released = HiFiGANGenerator(stage_mode="int8")
+    assert [released.runs_stage_kernel(i) for i in range(4)] == [True] * 4
+    scales = {i: torch.ones(18) for i in range(4)}
+    for channels, kw, want in [
+            (192, dict(stage_mode="int8"), ["hifigan_stage"] * 4),
+            (192, dict(stage_mode="bf16", imcol_mode="int8"),
+             ["hifigan_stage"] + ["imcol_stage"] * 3),
+            (64, dict(stage_mode="int8", imcol_mode="bf16"), ["quantized_stage"] * 4),
+            (384, dict(stage_mode="int8", imcol_mode="int8"),
+             ["hifigan_stage"] + ["imcol_stage"] * 3)]:
+        calls.clear()
+        HiFiGANGenerator(channels=channels, **kw)(torch.zeros(1, 10, 80), act_scales=scales)
+        assert calls == want, (channels, kw)
+    assert quantized_stage.launches == 0

@@ -26,12 +26,18 @@ rows) and halo (``imcol_halo``) and computes every row of the window.
 f32 and bf16 results do not depend on the tile.
 
 ``imcol_stage`` launches the kernel for CUDA tensors and runs
-``imcol_stage_plain`` for CPU tensors; any other device raises.
+``imcol_stage_plain`` for CPU tensors; any other device raises.  On the
+card it takes every C <= 128 whose window fits in shared memory
+(``imcol_tiling`` picks the launch: one block or a cluster of blocks per
+window, and how the kernel walks the conv's taps); a C that is not a
+multiple of 4 runs with zero channels added, which change neither the
+integer sums nor the window's max.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Tuple
@@ -41,16 +47,23 @@ import torch.nn.functional as F
 
 from toucan_tpu_torch.kernels import build
 from toucan_tpu_torch.kernels.resstack import StageWeights
-from toucan_tpu_torch.kernels.stage import (EPW, SMEM_LIMIT, ieee_div, pack_words,
-                                            quantize_weight, unpack_words)
+from toucan_tpu_torch.kernels.stage import (EPW, ONE_BLOCK_SMEM, SMEM_LIMIT, ieee_div,
+                                            pack_rows, quantize_weight, unpack_rows)
 
 MODES = ("int8", "bf16")
 _MODE_ID = {"int8": 0, "bf16": 1}
 LANES = 128        # the JAX generator's min_lanes: narrower stages are time-folded to it
 TILE = 512         # folded output rows per window, the JAX kernel's default
-KERNEL_CHANNELS = (32, 64, 128)
-_KW = 8            # 32-bit words of input channels staged per step (csrc)
-_NT = 512          # threads per block (csrc)
+MAX_CHANNELS = 128  # the widest stage the JAX generator gives the im2col kernel
+MAX_CLUSTER = 4    # blocks per window at most
+TWO_BLOCK_SMEM = 115712  # two blocks of at most this share an SM (228 KB, 1 KB reserved a block)
+# the kernel's geometry (csrc/hifigan_imcol.cu)
+_RT = 256          # output rows per pass: 8 warps x 32 rows
+_COT = 32          # output channels per pass
+_KW = 8            # 32-bit words of K per step
+_ROW_PAD = 4       # words of padding per operand row read by ldmatrix
+_WROW = 12         # words per staged weight row (8, padded)
+_N_WARPS = 8
 
 
 def imcol_fold(channels: int) -> int:
@@ -81,9 +94,9 @@ class ImcolStage:
     """One stage's 18 convs prepared for a mode, in the packed conv order of
     ``StageWeights``.
 
-    ``w`` is flat: per conv (k, C_in/e, C_out, e), e consecutive input
+    ``w`` is flat: per conv (k, C_out, C_in/e, e), e consecutive input
     channels of one output channel per 32-bit word (int8: e = 4, bf16:
-    e = 2).  ``scale`` (18, C) holds the int8 weights' per-output-channel
+    e = 2; ``kernels/stage.py::pack_rows``).  ``scale`` (18, C) holds the int8 weights' per-output-channel
     scales (ones for bf16), ``bias`` (18, C) the biases.
     """
 
@@ -98,7 +111,7 @@ class ImcolStage:
 
     def conv_weights(self):
         """(weight (C_out, C_in, k) as float32 values, dilation) per conv."""
-        return unpack_words(self.w, self.mode, self.channels, self.kernel_sizes, self.dilations)
+        return unpack_rows(self.w, self.channels, self.kernel_sizes, self.dilations)
 
 
 def prepare_imcol_stage(sw: StageWeights, mode: str) -> ImcolStage:
@@ -114,10 +127,10 @@ def prepare_imcol_stage(sw: StageWeights, mode: str) -> ImcolStage:
     for w, _, _ in sw.conv_weights():
         if mode == "int8":
             w8, cs = quantize_weight(w)
-            ws.append(pack_words(w8, EPW[mode]))
+            ws.append(pack_rows(w8))
             scales.append(cs)
         else:
-            ws.append(pack_words(w.to(torch.bfloat16), EPW[mode]))
+            ws.append(pack_rows(w.to(torch.bfloat16)))
             scales.append(ones)
     return ImcolStage(mode, torch.cat(ws).contiguous(), torch.stack(scales).float().contiguous(),
                       sw.b.float().contiguous(), sw.channels, sw.kernel_sizes, sw.dilations,
@@ -134,6 +147,12 @@ def _windows(b: int, t: int, fold: int, tile: int, halo: int, device):
          + torch.arange(width, device=device)[None, :])
     mask = ((g >= 0) & (g < t)).repeat(b, 1)[:, None, :]
     return n_win, width, step, left, mask
+
+
+def _dequant(s: torch.Tensor, f: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """s * f + b in f32, rounded after the product and after the sum, as the
+    kernel's __fmul_rn / __fadd_rn (no FMA)."""
+    return s * f + bias
 
 
 def imcol_stage_plain(x: torch.Tensor, st: ImcolStage, fold: int,
@@ -170,7 +189,7 @@ def imcol_stage_plain(x: torch.Tensor, st: ImcolStage, fold: int,
                     q = torch.clamp(torch.round(v * ieee_div(127.0, a)), -127, 127).double()
                     s = F.conv1d(F.pad(q, (pad, pad), mode="circular"), w.double(),
                                  dilation=d).float()
-                    y = s * (st.scale[n][None, :, None] * ieee_div(a, 127.0)) + bias
+                    y = _dequant(s, st.scale[n][None, :, None] * ieee_div(a, 127.0), bias)
                 else:
                     q = v.to(torch.bfloat16).float()
                     y = F.conv1d(F.pad(q, (pad, pad), mode="circular"), w, dilation=d) + bias
@@ -182,12 +201,195 @@ def imcol_stage_plain(x: torch.Tensor, st: ImcolStage, fold: int,
     return out.permute(0, 1, 3, 2).reshape(b, n_win * step, c)[:, :t].contiguous()
 
 
-def _smem_bytes(mode: str, c: int, n_s: int, margin: int, k_max: int) -> int:
-    """The kernel's dynamic shared memory: the quantized window with a
-    circular margin on each side (rows padded by one word), one step of
-    staged weights and the block reduction's slots."""
-    cot = 64 if c % 64 == 0 else 32
-    return 4 * ((n_s + 2 * margin) * (c // EPW[mode] + 1) + k_max * _KW * cot + _NT // 32)
+def _smem_bytes(n_s: int, cluster: int, margin: int, wpr: int, k_max: int,
+                wslots: int) -> int:
+    """The kernel's dynamic shared memory: a block's rows of the quantized
+    window with ``margin`` rows more on each side (``wpr`` 32-bit words a
+    row, rounded up to 16 bytes), ``wslots`` steps of staged weights (k_max
+    x 32 output channels x 12 words), the warp maxima and the cluster's
+    slots."""
+    rows = -(-n_s // cluster) + 2 * margin
+    return 4 * (-(-rows * wpr // 4) * 4 + wslots * k_max * _COT * _WROW + _N_WARPS + cluster)
+
+
+def _weight_steps(mode: str, c: int, flat: bool, kernel_sizes) -> int:
+    """The most distinct weight steps (32 output channels x one chunk of K)
+    a conv of the stage has: the buffers that hold a conv's weights whole."""
+    cw = c // EPW[mode]
+    n_c = -(-c // _COT)
+    if not flat:
+        return n_c * (cw // _KW)
+    return n_c * max(-(-(-(-k * cw // _KW)) // k) for k in kernel_sizes)
+
+
+def _layouts(mode: str, c: int, kernel_sizes):
+    """(flat, words per operand row, weight buffers) the kernel can take at
+    C, in order of preference: taps of 8 words read by ldmatrix from rows
+    padded by 16 bytes where C / e is a multiple of 8, else (or where those
+    rows do not fit) K flattened over (tap, word) from dense rows; each
+    conv's weights staged whole, else one step ahead in two buffers."""
+    cw = c // EPW[mode]
+    rows = ([(False, cw + _ROW_PAD)] if cw % _KW == 0 else []) + [(True, cw)]
+    return [(flat, wpr, wslots) for flat, wpr in rows
+            for wslots in sorted({max(_weight_steps(mode, c, flat, kernel_sizes), 2), 2},
+                                 reverse=True)]
+
+
+@dataclass(frozen=True)
+class ImcolTiling:
+    """How one K4 launch cuts its work (see ``imcol_tiling``)."""
+
+    cluster: int     # blocks per window; block r takes rows [r n_s / cluster, (r+1) n_s / cluster)
+    clusters: int    # clusters launched (persistent: each walks windows in turn)
+    flat: bool       # K walked over flattened (tap, word) steps from dense operand rows
+    wpr: int         # 32-bit words per operand row in shared memory
+    wslots: int      # weight buffers: all of a conv's steps, or two staged a step ahead
+    per_sm: int      # blocks an SM runs at once (1, or 2 at 128 registers a thread)
+    windows: int     # B x windows per sample
+    window: int      # rows of a window, n_s = step + 2 left
+    step: int        # output rows per window (tile x fold)
+    left: int        # halo rows on each side (halo x fold)
+    margin: int      # operand rows beyond a block's own on each side
+    smem: int        # dynamic shared memory of a block, bytes
+    channels: int
+
+    @property
+    def grid(self) -> int:
+        return self.clusters * self.cluster
+
+    @property
+    def scratch_bytes(self) -> int:
+        """The f32 streams xb and xt of the windows in flight."""
+        return self.clusters * 2 * self.window * self.channels * 4
+
+
+# estimated cost of a window split over a cluster, against its share of one
+# block's work: the operand's edge rows cross to the peers, and each conv
+# waits at two cluster barriers
+CLUSTER_COST = 1.15
+
+
+@functools.lru_cache(maxsize=512)
+def imcol_tiling(mode: str, b: int, t: int, c: int, fold: int, n_sm: int,
+                 kernel_sizes=(3, 7, 11), dilations=(1, 3, 5), clusters_in_flight=None,
+                 clusters=(1, 2, MAX_CLUSTER), tile: int = TILE) -> ImcolTiling:
+    """Pick K4's launch for a stage (B, T, C) at time fold ``fold``.
+
+    The windows are JAX's (``tile`` x fold output rows, ``imcol_halo`` x
+    fold rows of halo on each side), B x ceil(T / (tile x fold)) of them.
+    A cluster splits a window's rows over its blocks (sizes from
+    ``clusters``), and for each size the first of ``_layouts`` that fits
+    in shared memory is taken.  ``clusters_in_flight``: ((cluster, clusters
+    the card runs at once at one block per SM), ...) as the device reports
+    it, default n_sm // cluster.
+
+    - Where the windows are at most half the SMs (48 at stage 1 of 512
+      frames), one block per window would leave most of the card idle: the
+      smallest cluster that gives every SM a block (else the largest) is
+      taken with blocks small enough that two share an SM, at 128
+      registers a thread (faster on the H100 than any split at one block
+      per SM: ``scripts/k4_variants.py``).
+    - Otherwise one block per SM: the estimate is waves x (the block's rows
+      rounded up to 256-row passes, for the products, plus its rows, for
+      the elementwise passes), times ``CLUSTER_COST`` for a split window;
+      the cheapest wins, ties to the smaller cluster.  So 96 windows (stages
+      2 and 3 of 512 frames) take one block each: splitting them over 132
+      SMs still takes two waves, and measured slower in int8 (in bf16 2-5 %
+      faster, where the split leaves room to keep a conv's weights in
+      shared memory, which the estimate does not model).
+
+    Raises ValueError for C > 128, C not a multiple of 4 (the wrapper adds
+    zero channels first) or a window that fits in no layout."""
+    kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if not 0 < c <= MAX_CHANNELS or c % 4:
+        raise ValueError(f"K4 takes C % 4 == 0 up to {MAX_CHANNELS}, got {c}")
+    halo = imcol_halo(kernel_sizes, dilations, fold)
+    step, left = tile * fold, halo * fold
+    n_s = step + 2 * left
+    margin = (kernel_sizes[-1] - 1) // 2 * dilations[-1]
+    jobs = b * -(-(t // fold) // tile)
+    in_flight = dict(clusters_in_flight or ())
+    k_max = kernel_sizes[-1]
+
+    def layout(cl, limit):
+        fits = [lay for lay in _layouts(mode, c, kernel_sizes)
+                if _smem_bytes(n_s, cl, margin, lay[1], k_max, lay[2]) <= limit]
+        return fits[0] if fits and n_s // cl >= margin else None
+
+    def tiling(cl, lay, per_sm, slots):
+        flat, wpr, wslots = lay
+        smem = _smem_bytes(n_s, cl, margin, wpr, k_max, wslots)
+        return ImcolTiling(cl, min(jobs, slots), flat, wpr, wslots, per_sm, jobs, n_s, step,
+                           left, margin, smem if per_sm == 2 else max(smem, ONE_BLOCK_SMEM), c)
+
+    if 2 * jobs <= n_sm:
+        split = [cl for cl in sorted(clusters) if cl > 1 and layout(cl, TWO_BLOCK_SMEM)]
+        fill = [cl for cl in split if jobs * cl >= n_sm] or split[-1:]
+        if fill:
+            cl = fill[0]
+            return tiling(cl, layout(cl, TWO_BLOCK_SMEM), 2,
+                          2 * max(1, in_flight.get(cl, n_sm // cl)))
+    best = None
+    for cl in sorted(clusters):
+        lay = layout(cl, SMEM_LIMIT)
+        if lay is None:
+            continue
+        slots = max(1, in_flight.get(cl, n_sm // cl))
+        rows = -(-n_s // cl)
+        cost = -(-jobs // slots) * (-(-rows // _RT) * _RT + rows) * (CLUSTER_COST if cl > 1 else 1)
+        if best is None or cost < best[0]:
+            best = (cost, tiling(cl, lay, 1, slots))
+    if best is None:
+        raise ValueError(f"K4 {mode}: a window of {n_s} rows x {c} channels does not fit in "
+                         "shared memory")
+    return best[1]
+
+
+_max_clusters_cache: dict = {}
+
+
+def _clusters_in_flight(device, mode):
+    """((cluster, clusters the device runs at once), ...) for K4's cluster
+    sizes, at one block per SM."""
+    key = (device.index, mode)
+    if key not in _max_clusters_cache:
+        lib = build.load("hifigan_imcol")
+        fn = lib.hifigan_imcol_max_clusters
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        pairs = []
+        for cl in (1, 2, MAX_CLUSTER):
+            n = ctypes.c_int(0)
+            with torch.cuda.device(device):
+                err = fn(_MODE_ID[mode], 0, cl, 1, ONE_BLOCK_SMEM, ctypes.addressof(n))
+            build.check(lib, err, "hifigan_imcol_max_clusters")
+            pairs.append((cl, n.value))
+        _max_clusters_cache[key] = tuple(pairs)
+    return _max_clusters_cache[key]
+
+
+def tiling_for(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE,
+               clusters=(1, 2, MAX_CLUSTER)) -> ImcolTiling:
+    """The tiling ``imcol_stage`` launches x with on its card."""
+    b, t, c = x.shape
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return imcol_tiling(st.mode, b, t, c, fold, n_sm, st.kernel_sizes, st.dilations,
+                        _clusters_in_flight(x.device, st.mode), tuple(clusters), tile)
+
+
+@functools.lru_cache(maxsize=16)
+def widened(st: ImcolStage, c: int) -> ImcolStage:
+    """``st`` with zero channels added up to ``c``: zero weights into and out
+    of them, zero bias and unit scale, so their stream stays zero and the
+    other channels' sums and the window's max are unchanged."""
+    pad = c - st.channels
+    ws = [pack_rows(F.pad(w, (0, 0, 0, pad, 0, pad)).to(st.w.dtype))
+          for w, _ in st.conv_weights()]
+    return dataclasses.replace(st, w=torch.cat(ws).contiguous(), channels=c,
+                               scale=F.pad(st.scale, (0, pad), value=1.0).contiguous(),
+                               bias=F.pad(st.bias, (0, pad)).contiguous())
 
 
 def _check(x: torch.Tensor, st: ImcolStage, fold: int):
@@ -195,8 +397,8 @@ def _check(x: torch.Tensor, st: ImcolStage, fold: int):
     c = st.channels
     if x.dim() != 3 or x.shape[-1] != c:
         raise ValueError(f"x must be (B, T, {c}), got {tuple(x.shape)}")
-    if c not in KERNEL_CHANNELS:
-        raise ValueError(f"the kernel takes C in {KERNEL_CHANNELS}, got {c}")
+    if c > MAX_CHANNELS:
+        raise ValueError(f"the kernel takes C up to {MAX_CHANNELS}, got {c}")
     if x.dtype != torch.float32 or not x.is_contiguous():
         raise ValueError("x must be contiguous float32")
     if any(t.device != x.device for t in (st.w, st.scale, st.bias)):
@@ -206,17 +408,19 @@ def _check(x: torch.Tensor, st: ImcolStage, fold: int):
         raise ValueError("the kernel takes 3 stacks x 3 rounds, ascending")
     if x.shape[1] % fold:
         raise ValueError(f"T = {x.shape[1]} is not a multiple of the fold {fold}")
+    build.check_aligned("imcol_stage", x=x, w=st.w, scale=st.scale, bias=st.bias)
     build.check_no_grad("imcol_stage", x=x, scale=st.scale, bias=st.bias)
 
 
 def imcol_stage(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE) -> torch.Tensor:
     """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
 
-    x (B, T, C) f32 contiguous with C in (32, 64, 128) on the card; ``st``
-    from ``prepare_imcol_stage``; ``fold`` the stage's time fold
-    (``imcol_fold``).  Returns (B, T, C) f32.  The kernel has no backward:
-    on the card a call with grad enabled on an input that requires grad
-    raises ValueError.
+    x (B, T, C) f32 contiguous, C <= 128 on the card; ``st`` from
+    ``prepare_imcol_stage``; ``fold`` the stage's time fold
+    (``imcol_fold``).  Returns (B, T, C) f32.  A window that does not fit
+    in shared memory raises ValueError before a launch (``imcol_tiling``).
+    The kernel has no backward: on the card a call with grad enabled on an
+    input that requires grad raises ValueError.
     """
     if x.device.type == "cpu":
         return imcol_stage_plain(x, st, fold, tile)
@@ -224,30 +428,26 @@ def imcol_stage(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE) ->
         raise ValueError(f"imcol_stage takes cuda or cpu tensors, got {x.device}")
     _check(x, st, fold)
     c = st.channels
+    if c % 4:
+        wide = c + (-c) % 4
+        return imcol_stage(F.pad(x, (0, wide - c)), widened(st, wide), fold,
+                           tile)[..., :c].contiguous()
     ks, ds = st.kernel_sizes, st.dilations
     b, t, _ = x.shape
-    halo = imcol_halo(ks, ds, fold)
-    step, left = tile * fold, halo * fold
-    n_s = step + 2 * left
-    margin = (ks[-1] - 1) // 2 * ds[-1]
-    smem = _smem_bytes(st.mode, c, n_s, margin, ks[-1])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"a window of {n_s} x {c} needs {smem} bytes of shared memory")
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    per_sm = max(1, min(2048 // _NT, (SMEM_LIMIT + 1024) // (smem + 1024)))
-    grid = min(b * -(-t // step), n_sm * per_sm)
+    tl = tiling_for(x, st, fold, tile)
     out = torch.empty_like(x)
-    scratch = torch.empty((grid, 2, n_s, c), device=x.device, dtype=torch.float32)
+    scratch = torch.empty(tl.scratch_bytes // 4, device=x.device, dtype=torch.float32)
     lib = build.load("hifigan_imcol")
     fn = lib.hifigan_imcol
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 19
                    + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(_MODE_ID[st.mode], x.data_ptr(), st.w.data_ptr(), st.scale.data_ptr(),
                  st.bias.data_ptr(), out.data_ptr(), scratch.data_ptr(), b, t, c,
-                 ks[0], ks[1], ks[2], ds[0], ds[1], ds[2], step, left, margin, grid, smem,
+                 ks[0], ks[1], ks[2], ds[0], ds[1], ds[2], tl.step, tl.left, tl.margin,
+                 int(tl.flat), tl.wpr, tl.wslots, tl.cluster, tl.per_sm, tl.grid, tl.smem,
                  st.slope, stream)
     build.check(lib, err, "imcol_stage")
     imcol_stage.launches += 1

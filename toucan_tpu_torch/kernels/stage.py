@@ -79,19 +79,24 @@ class QuantizedStage:
 
     def conv_weights(self):
         """(weight (C_out, C_in, k) as float32 values, dilation) per conv."""
-        off, c = 0, self.channels
-        for k in self.kernel_sizes:
-            for d in self.dilations:
-                for dd in (d, 1):
-                    wk = self.w[off:off + k * c * c].view(k, c, c)
-                    yield wk.permute(1, 2, 0).float(), dd
-                    off += k * c * c
+        return unpack_rows(self.w, self.channels, self.kernel_sizes, self.dilations)
+
+
+def unpack_rows(w: torch.Tensor, c: int, kernel_sizes, dilations):
+    """(weight (C_out, C_in, k) as float32 values, dilation) per conv of a
+    stage's flat packed weights in ``pack_rows``'s layout, in packed order."""
+    off = 0
+    for k in kernel_sizes:
+        for d in dilations:
+            for dd in (d, 1):
+                yield w[off:off + k * c * c].view(k, c, c).permute(1, 2, 0).float(), dd
+                off += k * c * c
 
 
 def unpack_words(w: torch.Tensor, mode: str, c: int, kernel_sizes, dilations):
     """(weight (C_out, C_in, k) as float32 values, dilation) per conv of a
-    stage's flat packed weights in K4's layout (see ``pack_words``), in
-    packed order."""
+    stage's flat packed weights in ``pack_words``'s layout, in packed
+    order."""
     off = 0
     for k in kernel_sizes:
         for d in dilations:
@@ -124,15 +129,18 @@ def quantize_weight(w: torch.Tensor):
 
 
 def pack_words(w: torch.Tensor, e: int) -> torch.Tensor:
-    """(C_out, C_in, k) -> flat (k, C_in/e, C_out, e): K4's layout."""
+    """(C_out, C_in, k) -> flat (k, C_in/e, C_out, e): the layout K3 and K4
+    took before their tensor-core kernels, kept to check that ``pack_rows``
+    holds the same values."""
     c_out, c_in, k = w.shape
     return w.permute(2, 1, 0).reshape(k, c_in // e, e, c_out).permute(0, 1, 3, 2).reshape(-1)
 
 
 def pack_rows(w: torch.Tensor) -> torch.Tensor:
-    """(C_out, C_in, k) -> flat (k, C_out, C_in): K3's layout.  Viewed as
-    32-bit words, (k, C_out, C_in/e) with e consecutive input channels per
-    word, one output channel's words contiguous: the rows of K3's B tiles."""
+    """(C_out, C_in, k) -> flat (k, C_out, C_in): K3's and K4's layout.
+    Viewed as 32-bit words, (k, C_out, C_in/e) with e consecutive input
+    channels per word, one output channel's words contiguous: the rows of
+    the kernels' B tiles."""
     return w.permute(2, 0, 1).reshape(-1)
 
 

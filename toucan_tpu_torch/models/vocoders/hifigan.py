@@ -7,15 +7,19 @@ stage is a transposed conv and then three residual stacks averaged: that
 stage is ``kernels/resstack.py::hifigan_stage`` (K2), the CUDA kernel on
 CUDA tensors and its plain version on CPU tensors.  That is
 ``stage_mode="f32"``, the default: the JAX package's "" and "f32" modes
-are one function.  With ``stage_mode="int8"`` or ``"bf16"`` every stage
-runs ``kernels/stage.py::quantized_stage`` (K3) instead; int8 takes
-per-stage activation scales from ``calibrate_act_scales``.  The JAX package
-picks the stages its stage kernel may run by their folded width; without
-folding every stage of the port is eligible, so it has no ``stage_indices``.
-With ``imcol_mode="int8"`` or ``"bf16"`` (and ``stage_mode="f32"``) the
+are one function.  With ``stage_mode="int8"`` or ``"bf16"`` the stages
+the JAX generator gives its stage kernel run
+``kernels/stage.py::quantized_stage`` (K3) instead: those whose folded
+width, ``imcol_fold(C) * C``, is 128 or 256 (every stage of the released
+512-channel geometry; none of a 192-channel one, whose folded widths are 96
+and 120); int8 takes per-stage activation scales from
+``calibrate_act_scales``.  The JAX ``stage_indices`` default to all four
+stages and the port has no such option.  A stage K3 does not take falls
+through to the im2col rule: with ``imcol_mode="int8"`` or ``"bf16"`` the
 stages in ``imcol_stages`` with at most 128 channels run
 ``kernels/imcol.py::imcol_stage`` (K4), whose int8 scales are dynamic per
-window; ``imcol_mode="f32"`` is the exact stage, K2.  ``imcol_dense`` is
+window; ``imcol_mode="f32"`` is the exact stage, K2, as is every other
+stage.  ``imcol_dense`` is
 taken for parity with the JAX generator and changes nothing in the port: it
 selects the JAX kernel's dense folded weights, which give the same int8
 values and exact integer sums, so both compute the port's one stage.
@@ -132,10 +136,17 @@ class HiFiGANGenerator(nn.Module):
             self._imcol[i] = hit
         return hit[2]
 
+    def runs_stage_kernel(self, i: int) -> bool:
+        """Whether stage i runs K3: the JAX generator's rule
+        (``toucan_tpu/models/vocoders/hifigan.py::HiFiGANGenerator.__call__``),
+        ``stage_mode`` int8 or bf16 and a folded width of 128 or 256."""
+        c = self.upsamples[i][1].out_channels
+        return self.stage_mode in MODES and imcol_fold(c) * c in (128, 256)
+
     def runs_imcol(self, i: int) -> bool:
-        """Whether stage i runs K4 when ``stage_mode`` does not take it: the
-        JAX generator's rule, ``imcol_mode`` set, at most 128 channels and
-        i in ``imcol_stages`` (the f32 mode is the exact stage, K2)."""
+        """Whether stage i runs K4 when K3 does not take it: the JAX
+        generator's rule, ``imcol_mode`` set, at most 128 channels and i in
+        ``imcol_stages`` (the f32 mode is the exact stage, K2)."""
         return (self.imcol_mode in MODES and i in self.imcol_stages
                 and self.upsamples[i][1].out_channels <= 128)
 
@@ -155,7 +166,7 @@ class HiFiGANGenerator(nn.Module):
             x = up(x).transpose(1, 2).contiguous()
             if stage_inputs is not None:
                 stage_inputs.append(x)
-            if stage_inputs is None and self.stage_mode in MODES:
+            if stage_inputs is None and self.runs_stage_kernel(i):
                 scales = None if act_scales is None else act_scales[i]
                 x = quantized_stage(x, self.quantized_stage_weights(i, scales))
             elif self.runs_imcol(i):
