@@ -22,7 +22,12 @@ Phases, each reported on its own lines:
    each launch took, on HiFiGAN's weights and on weights at unit gain
    (where only an f32-accurate product meets K2's tolerance);
 4. k5: the alias-free SnakeBeta kernel against its plain version at
-   BigVGAN's four stage shapes of 512 mel frames (and T = 8 for the edges);
+   BigVGAN's four stage shapes of 512 and 2048 mel frames (B = 1) and of
+   1024 frames at B = 4, each with its share of the bytes bound, GB/s and
+   launch geometry, and at 2048 frames timed in turns against one chunk a
+   warp; then at T = 8, at T = 4099 (rows not 16-byte aligned) with C = 20
+   and 32, and at 100 times the amplitude, where the plain version and the
+   kernel are also held against the same formula in float64;
 5. k3: the quantized HiFiGAN stage kernel, int8 and bf16, against its plain
    versions at the four stage shapes of 512 mel frames, with scales
    calibrated on the same input, K2's time beside it, and the tiling each
@@ -43,9 +48,17 @@ Phases, each reported on its own lines:
    (2048 vocoder frames), of the call with 8 frames per phone (896) and of
    ``synthesize_batch`` (B = 4); and K4 (int8, bf16) at the widths of other
    generators, C = 96 (fold 1) and 48 (fold 2, K walked flat in int8);
+   widths: K1 at d = 96 and 128 (built) and 40 (zero-padded to 48) at
+   T = 2048, K2 at C = 512 (clusters of 8 blocks) and at 48, 16 and 4
+   (widened with zero channels), on generators' init weights and at unit
+   gain, timed;
    grad: each of K1-K5's wrappers on CUDA inputs that require grad, with
    grad enabled, must raise ValueError without launching (the kernels have
    no backward);
+   other models: ``HiFiGANGenerator(channels=1024)`` and ``(channels=64)``
+   on 64 mel frames, card against CPU within 2e-5, and a ToucanTTS at adim
+   384 with 4 heads (d = 96) with the 64-channel generator, card against
+   CPU as in the ref phase;
 8. main: the full-width model (default ToucanTTSConfig, seeded random
    weights) through ``ToucanTTSInterface``, on four paths, each call with
    its launches counted from 0:
@@ -97,16 +110,18 @@ import torch
 from toucan_tpu_torch.frontend.text import TextFrontend
 from toucan_tpu_torch.infer.interface import (FRAMES_PER_PHONE, PHONE_BUCKET,
                                               ToucanTTSInterface, _round_up)
+from toucan_tpu_torch.kernels import aliasfree as aliasfree_module
 from toucan_tpu_torch.kernels import build
 from toucan_tpu_torch.kernels import imcol as imcol_module
 from toucan_tpu_torch.kernels import stage as stage_module
-from toucan_tpu_torch.kernels.aliasfree import alias_free_snake, alias_free_snake_plain
-from toucan_tpu_torch.kernels.flash_attention import (flash_rel_attention,
+from toucan_tpu_torch.kernels.aliasfree import (alias_free_snake, alias_free_snake_plain,
+                                                alias_free_snake_polyphase)
+from toucan_tpu_torch.kernels.flash_attention import (BUILT_HEAD_DIMS, flash_rel_attention,
                                                       flash_rel_attention_plain)
 from toucan_tpu_torch.kernels.imcol import (imcol_fold, imcol_stage, imcol_stage_plain,
                                             prepare_imcol_stage)
-from toucan_tpu_torch.kernels.resstack import (hifigan_stage, hifigan_stage_plain, pack_stage,
-                                               tiling_for)
+from toucan_tpu_torch.kernels.resstack import (hifigan_stage, hifigan_stage_plain,
+                                               kernel_channels, pack_stage, tiling_for)
 from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_stage,
                                             quantized_stage, quantized_stage_plain)
 from toucan_tpu_torch.load import GLOW_WEIGHT_NORM, interface_from_torch, split_weight_norm
@@ -152,11 +167,31 @@ K5_LAUNCHES = 73       # 4 stages x 3 AMP blocks x 6 activations + activation_po
 # sums run in other orders (cuDNN, the kernels' tiles) through 12 conformer
 # blocks and 18 glow blocks
 TOL_REF = 1e-3
+# a generator alone, card against CPU on the same mel: the HiFiGAN wave bar
+# of the JAX package against the torch reference (tests/test_vocoder_parity.py)
+TOL_WAVE = 2e-5
 # the same f32 call with the caller's cudnn.allow_tf32 on and off: only
 # cuDNN's choice of algorithm may differ
 TOL_TF32_DEFAULT = 1e-5
 K2_FRAMES = 512
 STAGE_SCALES = (8, 48, 192, 384)  # vocoder samples per mel frame after each stage
+# BigVGAN's stages at 512 channels: (samples per mel frame, channels)
+BIGVGAN_STAGES = tuple(zip(STAGE_SCALES, (256, 128, 64, 32)))
+# K5's large-amplitude case: x times K5_LARGE, so e^alpha |y| reaches ~1e3.
+# There f32 itself moves z by more than TOL_K5 (one ulp of |z| ~ 400 is
+# 3e-5, and an ulp of y moves sin^2(e^alpha y) by e^alpha |y| 2^-23 ~ 1e-4),
+# so the kernel is held to TOL_K5 x K5_LARGE against the plain version, and
+# against a float64 evaluation of the same formula to no more than
+# K5_REF_FACTOR x the plain version's own distance from it
+K5_LARGE = 100.0
+K5_REF_FACTOR = 2.0
+# head dims K1 is checked and timed at besides the default's 48: built
+# (96, 128) and padded (40), at T = 2048
+K1_WIDTHS = (96, 128, 40)
+# K2 at other generators' widths, on their init weights and at unit gain:
+# (C, generator channels, stage); C = 512 runs on clusters of 8 blocks, the
+# others widened with zero channels
+K2_WIDTHS = ((512, 1024, 0), (48, 96, 0), (16, 64, 1), (4, 64, 3))
 LONG_TEXT = ("The quick brown fox jumps over the lazy dog near the river bank, "
              "while seven children watch from the old bridge.")
 BATCH_TEXTS = ["Speech synthesis turns written text into spoken audio.",
@@ -180,6 +215,31 @@ def time_ms(fn, iters):
         fn()
     end.record()
     end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters=20):
+    """Device ms of one fn(): iters calls captured in one CUDA graph and
+    replayed between two events (after a warm-up on a side stream), so the
+    host's enqueue rate, which bounds a loop of short launches, does not
+    enter it."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
     return start.elapsed_time(end) / iters
 
 
@@ -222,6 +282,16 @@ def phase_build():
             raise AssertionError(f"{name} has no {', '.join(missing)} instruction in its SASS")
         if name in NO_DP4A and counts["IDP"]:
             raise AssertionError(f"{name} still runs __dp4a (IDP) on the CUDA cores")
+    # K5: its taps are parameter-bank operands, its halos shuffles; local
+    # memory (LDL/STL) only in sinf's slow path for |arg| > 8192
+    sass = subprocess.run([cuobjdump, "--dump-sass", str(build.library_path("alias_free_snake"))],
+                          capture_output=True, text=True, check=True).stdout
+    counts = {op: sum(1 for line in sass.splitlines() if f" {op}" in line)
+              for op in ("LDL", "STL", "MUFU.SIN", "SHFL", "LDG.E.128", "STG.E.128")}
+    log("build", "alias_free_snake: instructions in SASS: "
+                 + ", ".join(f"{op} {n}" for op, n in counts.items()))
+    if not (counts["MUFU.SIN"] and counts["SHFL"] and counts["LDG.E.128"]):
+        raise AssertionError("alias_free_snake lacks its reduced sine, shuffles or float4 loads")
 
 
 def k1_inputs(gen, dev, b, h, d, t, lengths):
@@ -372,12 +442,12 @@ def phase_k2(dev, gen, vocoder, unit):
     return row, stage_ms
 
 
-def k5_inputs(gen, dev, b, t, c):
+def k5_inputs(gen, dev, b, t, c, scale=1.0):
     """x (B, T, C) as BigVGAN passes it (the view of a (B, C, T) conv
-    output), random alpha and beta (x0.3)."""
+    output), times ``scale``, random alpha and beta (x0.3)."""
     alpha = 0.3 * torch.randn(c, generator=gen, device=dev)
     beta = 0.3 * torch.randn(c, generator=gen, device=dev)
-    return torch.randn(b, c, t, generator=gen, device=dev).transpose(1, 2), alpha, beta
+    return scale * torch.randn(b, c, t, generator=gen, device=dev).transpose(1, 2), alpha, beta
 
 
 def k5_error(x, alpha, beta):
@@ -386,34 +456,101 @@ def k5_error(x, alpha, beta):
     return (got - alias_free_snake_plain(x, alpha, beta)).abs().max().item()
 
 
+def k5_one_tile(fn):
+    """fn() with K5's launches taking one chunk a warp (no persistent runs)."""
+    chosen = aliasfree_module.geometry_for
+    aliasfree_module.geometry_for = functools.partial(chosen, persistent=False)
+    try:
+        return fn()
+    finally:
+        aliasfree_module.geometry_for = chosen
+
+
+def k5_geometry(x):
+    geo = aliasfree_module.geometry_for(x.transpose(1, 2).contiguous())
+    return (f"runs of {geo.seg_chunks} chunks, {geo.items} runs, {geo.blocks} blocks "
+            f"({geo.warps} warps), {'float4' if geo.vector else 'scalar'} access")
+
+
 def phase_k5(dev, gen):
-    """K5 at BigVGAN's stage shapes of 512 mel frames (B=1) and at T=8.
-    Totals: one activation per stage shape."""
-    totals = dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0)
-    worst = 0.0
-    for t, c in ((4096, 256), (24576, 128), (98304, 64), (196608, 32), (8, 256)):
-        x, alpha, beta = k5_inputs(gen, dev, 1, t, c)
-        err = k5_error(x, alpha, beta)
-        worst = max(worst, err)
-        ms = time_ms(lambda: alias_free_snake(x, alpha, beta), 20)
-        plain_ms = time_ms(lambda: alias_free_snake_plain(x, alpha, beta), 5)
-        flops, nbytes = 56 * t * c, 4 * (2 * t * c + 2 * c)
-        bound_ms, bound_by = bound(flops, nbytes)
-        log("k5", f"B=1 T={t} C={c} max_abs_err={err:.3e} kernel_ms={ms:.4f} "
-                  f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} ({bound_by}) "
-                  f"GB/s={nbytes / ms / 1e6:.1f}")
-        if not err <= TOL_K5:
-            raise AssertionError(f"K5 disagrees with its plain version at T={t} C={c}")
-        if t > 8:
+    """K5 at BigVGAN's four stage shapes of 512 and of 2048 mel frames
+    (B = 1) and of 1024 frames at B = 4, each with its share of the bytes
+    bound and its launch geometry; at 2048 frames also against one chunk a
+    warp (``k5_one_tile``), output equal, timed in turns.  Then the shapes
+    no stage gives: T = 8, T = 4099 (odd: rows not 16-byte aligned, scalar
+    access) at C = 20 (a multiple of no channel group), and x times 100,
+    where e^alpha y reaches ~1e3 (the sine's reduction far from 0).  The
+    row: one activation at each 512-frame stage shape, summed; its error
+    the worst of all."""
+    rows, worst = {}, 0.0
+    for frames, b in ((512, 1), (2048, 1), (1024, 4)):
+        totals = dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0)
+        for scale, c in BIGVGAN_STAGES:
+            t = scale * frames
+            x, alpha, beta = k5_inputs(gen, dev, b, t, c)
+            err = k5_error(x, alpha, beta)
+            worst = max(worst, err)
+            ab = ""
+            if frames == 2048:
+                one = k5_one_tile(lambda: alias_free_snake(x, alpha, beta))
+                if not torch.equal(one, alias_free_snake(x, alpha, beta)):
+                    raise AssertionError(f"K5 with one chunk a warp differs at T={t} C={c}")
+                del one
+                a = graph_ms(lambda: alias_free_snake(x, alpha, beta))
+                o = k5_one_tile(lambda: graph_ms(lambda: alias_free_snake(x, alpha, beta)))
+                o2 = k5_one_tile(lambda: graph_ms(lambda: alias_free_snake(x, alpha, beta)))
+                a2 = graph_ms(lambda: alias_free_snake(x, alpha, beta))
+                ms = (a + a2) / 2
+                ab = (f"; one chunk a warp ({k5_one_tile(lambda: k5_geometry(x))}): "
+                      f"{(o + o2) / 2:.4f} ms, output equal, timed in turns")
+            else:
+                ms = graph_ms(lambda: alias_free_snake(x, alpha, beta))
+            # the event loop, host enqueue included, as phase_k5 timed K5 before
+            loop_ms = time_ms(lambda: alias_free_snake(x, alpha, beta), 20)
+            plain_ms = time_ms(lambda: alias_free_snake_plain(x, alpha, beta), 5)
+            flops, nbytes = 56 * b * t * c, 4 * (2 * b * t * c + 2 * c)
+            bound_ms, _ = bound(flops, nbytes)
+            log("k5", f"{frames} frames: B={b} T={t} C={c} max_abs_err={err:.3e} "
+                      f"kernel_ms={ms:.4f} (loop of launches {loop_ms:.4f}) "
+                      f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                      f"share_of_bound={bound_ms / ms:.4f} GB/s={nbytes / ms / 1e6:.1f} "
+                      f"{k5_geometry(x)}{ab}")
+            if not err <= TOL_K5:
+                raise AssertionError(f"K5 disagrees with its plain version at B={b} T={t} C={c}")
+            del x
             totals["ms"] += ms
             totals["plain_ms"] += plain_ms
             totals["flops"] += flops
             totals["nbytes"] += nbytes
-    bound_ms, bound_by = bound(totals["flops"], totals["nbytes"])
-    log("k5", f"one activation at each of the four stage shapes: kernel_ms={totals['ms']:.4f} "
-              f"plain_ms={totals['plain_ms']:.4f} bound_ms={bound_ms:.4f}")
-    return dict(ms=totals["ms"], plain_ms=totals["plain_ms"], bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=None, max_abs_err=worst)
+        bound_ms, bound_by = bound(totals["flops"], totals["nbytes"])
+        log("k5", f"one activation at each of the four stage shapes of {frames} frames, B={b}: "
+                  f"kernel_ms={totals['ms']:.4f} plain_ms={totals['plain_ms']:.4f} "
+                  f"bound_ms={bound_ms:.4f} share_of_bound={bound_ms / totals['ms']:.4f} "
+                  f"GB/s={totals['nbytes'] / totals['ms'] / 1e6:.1f}")
+        rows[frames] = dict(ms=totals["ms"], plain_ms=totals["plain_ms"], bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None)
+    for b, t, c, scale in ((1, 8, 256, 1.0), (2, 4099, 20, 1.0), (1, 4099, 32, 1.0),
+                           (1, 192 * 512, 64, K5_LARGE)):
+        x, alpha, beta = k5_inputs(gen, dev, b, t, c, scale)
+        got = alias_free_snake(x, alpha, beta)
+        torch.cuda.synchronize()
+        plain = alias_free_snake_plain(x, alpha, beta)
+        err = (got - plain).abs().max().item()
+        # float64: what f32 rounding costs either side at this amplitude
+        ref = alias_free_snake_polyphase(x.double(), alpha.double(), beta.double())
+        err_ref, plain_ref = ((v.double() - ref).abs().max().item() for v in (got, plain))
+        arg = (torch.exp(alpha).abs().max() * x.abs().max()).item()
+        log("k5", f"B={b} T={t} C={c} x{scale:g}: max_abs_err={err:.3e} (kernel against "
+                  f"float64 {err_ref:.3e}, plain against float64 {plain_ref:.3e}; "
+                  f"max|z| {plain.abs().max().item():.1f}, max e^alpha|x| {arg:.1f}) "
+                  f"{k5_geometry(x)}")
+        if not (err <= TOL_K5 * scale and err_ref <= max(TOL_K5, K5_REF_FACTOR * plain_ref)):
+            raise AssertionError(f"K5 disagrees with its plain version at B={b} T={t} C={c} "
+                                 f"x{scale:g}")
+        if scale == 1.0:
+            worst = max(worst, err)
+        del x, got, plain, ref
+    return dict(rows[512], max_abs_err=worst)
 
 
 def check_prepared_as_on_cpu(what, sw, card, prepare, *args):
@@ -725,6 +862,95 @@ def phase_shapes(dev, gen, vocoder, unit, rows):
             for k, err in (("k2", max(err2, err2_u)), ("k3", err3), ("k4", err4), ("k5", err5)):
                 rows[k]["max_abs_err"] = max(rows[k]["max_abs_err"], err)
     k4_widths(dev, gen, rows["k4"])
+
+
+def phase_widths(dev, gen, rows):
+    """K1 at the head dims of K1_WIDTHS and K2 at the widths of K2_WIDTHS
+    against their plain versions, timed; each error folds into its row."""
+    h, t = 4, 2048
+    for d in K1_WIDTHS:
+        args = k1_inputs(gen, dev, 1, h, d, t, [t])
+        err, _ = k1_error(args)
+        ms = time_ms(lambda: flash_rel_attention(*args), 20)
+        flops = 6 * h * d * t * t
+        bound_ms, bound_by = bound(flops, 4 * (5 * h * t * d + h * (2 * t - 1) * d + 1),
+                                   SPLIT_TF32_PEAK)
+        built = d in BUILT_HEAD_DIMS
+        log("shapes", f"k1 at d={d} ({'built' if built else 'padded'}): B=1 H={h} T={t} "
+                      f"max_abs_err={err:.3e} kernel_ms={ms:.4f} bound_ms={bound_ms:.4f} "
+                      f"({bound_by}, split TF32) achieved_tflops={flops / ms / 1e9:.2f}")
+        if not err <= TOL_K1:
+            raise AssertionError(f"K1 disagrees with its plain version at d={d}")
+        rows["k1"]["max_abs_err"] = max(rows["k1"]["max_abs_err"], err)
+    for c, channels, i in K2_WIDTHS:
+        torch.manual_seed(SEED)
+        sw = HiFiGANGenerator(channels=channels).to(dev).eval().stage_weights(i)
+        if sw.channels != c:
+            raise AssertionError(f"stage {i} of a {channels}-channel generator has "
+                                 f"{sw.channels} channels, not {c}")
+        unit = pack_stage([(torch.randn(c, c, k, generator=gen, device=dev) / math.sqrt(k * c),
+                            0.1 * torch.randn(c, generator=gen, device=dev))
+                           for k in sw.kernel_sizes for _ in range(6)],
+                          c, sw.kernel_sizes, sw.dilations, sw.slope)
+        t2 = STAGE_SCALES[i] * K2_FRAMES
+        x = torch.randn(1, t2, c, generator=gen, device=dev)
+        err, excess = k2_error(x, sw)
+        err_u, excess_u = k2_error(x, unit)
+        ms = time_ms(lambda: hifigan_stage(x, sw), 3)
+        tl = tiling_for(x, sw)
+        log("shapes", f"k2 at C={c} (stage {i} of a {channels}-channel generator; kernel width "
+                      f"{kernel_channels(c)}): B=1 T={t2} max_abs_err={err:.3e} "
+                      f"(excess {excess:.2e}; unit gain {err_u:.3e}, excess {excess_u:.2e}; "
+                      f"tolerance {TOL_K2[0]} over the rtol share) kernel_ms={ms:.3f} "
+                      f"tile={tl.tile} cluster={tl.cluster} channels_per_block={tl.block_channels} "
+                      f"clusters={tl.clusters}")
+        if not (excess <= TOL_K2[0] and excess_u <= TOL_K2[0]):
+            raise AssertionError(f"K2 disagrees with its plain version at C={c}")
+        rows["k2"]["max_abs_err"] = max(rows["k2"]["max_abs_err"], err, err_u)
+        del x
+
+
+def phase_other_models(dev):
+    """Models of other widths on the card against the CPU: the generators
+    of 1024 channels (stage 0 on K2 clusters of 8) and of 64 (stages of
+    32 to 4 channels, widened) on 64 mel frames, and a ToucanTTS at adim
+    384 with 4 heads (d = 96 on K1; 2 encoder, decoder and glow blocks)
+    through the interface with the 64-channel generator (``phase_ref``)."""
+    mel = torch.from_numpy(np.random.RandomState(SEED).randn(1, 64, 80).astype(np.float32))
+    for channels in (1024, 64):
+        torch.manual_seed(SEED)
+        card = HiFiGANGenerator(channels=channels).eval()
+        cpu = HiFiGANGenerator(channels=channels).eval()
+        cpu.load_state_dict(card.state_dict())
+        card.to(dev)
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        wave = card(mel.to(dev)).cpu()
+        want = cpu(mel)
+        err, peak = (wave - want).abs().max().item(), want.abs().max().item()
+        log("ref", f"HiFiGANGenerator(channels={channels}) on 64 frames, card against CPU: "
+                   f"max_abs_err={err:.3e} (peak {peak:.3e}, tolerance {TOL_WAVE}); "
+                   f"k2_launches={hifigan_stage.launches}")
+        if not (wave.shape == want.shape and err <= TOL_WAVE):
+            raise AssertionError(f"the {channels}-channel generator disagrees with the CPU")
+        if hifigan_stage.launches != 4:
+            raise AssertionError(f"the {channels}-channel generator ran K2 "
+                                 f"{hifigan_stage.launches} times, not 4")
+    torch.manual_seed(SEED)
+    cfg = ToucanTTSConfig(adim=384, aheads=4, enc_layers=2, dec_layers=2, glow_blocks=2)
+    tts_sd = ToucanTTS(cfg).state_dict()
+    voc_sd = HiFiGANGenerator(channels=64).state_dict()
+    card = ToucanTTSInterface(tts_sd, voc_sd, config=cfg, vocoder=HiFiGANGenerator(channels=64),
+                              seed=SEED)
+    cpu = ToucanTTSInterface(tts_sd, voc_sd, config=cfg, vocoder=HiFiGANGenerator(channels=64),
+                             device="cpu", seed=SEED)
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    phase_ref("adim 384, 4 heads (d = 96), 64-channel HiFiGAN", card, cpu, TOL_REF)
+    counts = {k: w.launches for k, w in WRAPPERS.items()}
+    log("ref", f"adim 384: launches {counts}")
+    if not (counts["k1"] and counts["k2"]):
+        raise AssertionError("the adim-384 model did not run K1 and K2 on the card")
 
 
 WRAPPERS = {"k1": flash_rel_attention, "k2": hifigan_stage, "k3": quantized_stage,
@@ -1058,9 +1284,12 @@ def main():
     k5 = phase_k5(dev, gen)
     k3, k3_stage_ms = phase_k3(dev, gen, vocoder, k2_stage_ms)
     k4 = phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms)
-    phase_shapes(dev, gen, vocoder, unit, dict(k1=k1, k2=k2, k3=k3, k4=k4, k5=k5))
+    rows = dict(k1=k1, k2=k2, k3=k3, k4=k4, k5=k5)
+    phase_shapes(dev, gen, vocoder, unit, rows)
+    phase_widths(dev, gen, rows)
     del unit
     phase_grad_refusal(dev, gen, vocoder)
+    phase_other_models(dev)
 
     launches = dict.fromkeys(WRAPPERS, 0)
     iface = ToucanTTSInterface(tts_sd, voc_sd, seed=SEED)

@@ -29,7 +29,7 @@ for tree in other this this other; do
   (cd "$dir" && python3 chip_smoke.py) > "$log" 2>&1
   rc=$?
   echo "=== run $n ($tree, $dir): exit $rc in $(( $(date +%s) - start )) s"
-  grep -E "^\[(k3|k4)\] .*(stage|four stages)|^\[k2\] four stages|^\[build\] hifigan_(stage_q|imcol): instructions|^\[shapes\] k4 |one __call__|^\[grad\]|^\[main\] int8 against" "$log"
+  grep -E "^\[(k3|k4)\] .*(stage|four stages)|^\[k2\] four stages|^\[k1\] B=2 T=2048|^\[k5\] .*(frames|x100)|^\[build\] (hifigan_(stage_q|imcol)|alias_free_snake): instructions|^\[shapes\] k[124] |one __call__|alias_free_snake_kernel|^\[grad\]|^\[main\] int8 against|^\[ref\] (HiFiGANGenerator|adim)" "$log"
   tail -n 3 "$log"
   [ "$rc" -ne 0 ] && status=1
 done

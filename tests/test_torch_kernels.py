@@ -303,10 +303,108 @@ def test_wrappers_refuse_misaligned_views():
 
 
 def test_stage_tiling_takes_clusters_of_at_most_four():
-    """C = 512 would need 8 blocks of 64 channels: no stage has it, and the
-    chooser refuses it rather than pick a cluster the kernel rejects."""
+    """The cluster limit: C = 256 takes 4 blocks of 64 channels, C = 512
+    (a 1024-channel generator's stage 0) 8, Hopper's portable cluster size
+    and the kernel's limit, and C = 1024 raises rather than pick a cluster
+    the kernel rejects.  (Named for the limit of 4 it pinned before K2 took
+    clusters of 8.)"""
     from toucan_tpu_torch.kernels.resstack import MAX_CLUSTER, stage_tiling
 
-    assert stage_tiling(1, 4096, 256, 132, (3, 7, 11), (1, 3, 5)).cluster == MAX_CLUSTER == 4
-    with pytest.raises(ValueError, match="channels, got 512"):
-        stage_tiling(1, 4096, 512, 132, (3, 7, 11), (1, 3, 5))
+    assert stage_tiling(1, 4096, 256, 132, (3, 7, 11), (1, 3, 5)).cluster == 4
+    tl = stage_tiling(1, 4096, 512, 132, (3, 7, 11), (1, 3, 5))
+    assert (tl.cluster, tl.block_channels) == (MAX_CLUSTER, 64) and MAX_CLUSTER == 8
+    with pytest.raises(ValueError, match="channels, got 1024"):
+        stage_tiling(1, 4096, 1024, 132, (3, 7, 11), (1, 3, 5))
+
+
+@pytest.mark.parametrize("c", [4, 8, 16, 20, 32, 48, 96, 160, 192, 256, 320, 384, 448, 512])
+def test_stage_tiling_takes_every_width(c):
+    """Every C up to 512 gets a tiling at the kernel's width (C rounded up
+    to a multiple of 32 up to 128, of 64 past it): blocks of 64 or 32
+    channels, clusters of at most 8, at the 512-frame shape of a stage that
+    wide and at 64 frames."""
+    from toucan_tpu_torch.kernels.resstack import MAX_CLUSTER, kernel_channels, stage_tiling
+
+    wide = kernel_channels(c)
+    assert wide % 32 == 0 and c <= wide < c + (32 if c <= 128 else 64) and wide >= 32
+    for t in (8 * 512 * 256 // max(c, 32), 64 * 8):
+        tl = stage_tiling(1, t, c, 132, (3, 7, 11), (1, 3, 5))
+        assert tl.cluster * tl.block_channels == wide and tl.cluster <= MAX_CLUSTER
+        assert tl.block_channels in (32, 64) and tl.jobs == -(-t // tl.tile)
+
+
+def _sequential_conv1d(x, w, b, padding=0, dilation=1):
+    """conv1d summed in one fixed order, input channel by input channel and
+    tap by tap, as K2 walks them: added zero channels come last and add
+    exact zeros.  (The CPU library's convs block 48 and 64 channels
+    differently, which moves the last bit.)"""
+    k = w.shape[-1]
+    xp = torch.nn.functional.pad(x, (padding, padding))
+    t = xp.shape[-1] - dilation * (k - 1)
+    out = b[None, :, None].expand(x.shape[0], -1, t).clone()
+    for ci in range(x.shape[1]):
+        for tap in range(k):
+            out += w[None, :, ci, tap, None] * xp[:, ci, None, tap * dilation:tap * dilation + t]
+    return out
+
+
+@pytest.mark.parametrize("c", [4, 16, 48])
+def test_widened_stage_is_exact(monkeypatch, c):
+    """A stage widened with zero channels to the kernel's width gives, in
+    its first C channels, the unwidened stage bit for bit, and zeros in the
+    others (unit-gain weights, HiFiGAN's kernel sizes and dilations)."""
+    from toucan_tpu_torch.kernels import resstack
+    from toucan_tpu_torch.kernels.resstack import kernel_channels, widened
+
+    rng = np.random.RandomState(10 + c)
+    ks, dil = (3, 7, 11), (1, 3, 5)
+    convs = [(torch.from_numpy((rng.randn(c, c, k) / np.sqrt(k * c)).astype(np.float32)),
+              torch.from_numpy((0.1 * rng.randn(c)).astype(np.float32)))
+             for k in ks for _ in range(6)]
+    sw = pack_stage(convs, c, ks, dil)
+    x = torch.from_numpy(rng.randn(1, 40, c).astype(np.float32))
+    wide = kernel_channels(c)
+    monkeypatch.setattr(resstack.F, "conv1d", _sequential_conv1d)
+    want = hifigan_stage_plain(x, sw)
+    got = hifigan_stage_plain(torch.nn.functional.pad(x, (0, wide - c)), widened(sw, wide))
+    monkeypatch.undo()
+    assert got.shape == (1, 40, wide)
+    assert torch.equal(got[..., :c], want)
+    assert not got[..., c:].any()
+    assert hifigan_stage.launches == 0
+
+
+@pytest.mark.parametrize("d", [8, 40, 96, 128])
+def test_padded_head_dims_match_unpadded(d):
+    """K1 takes any head dim up to 128 zero-padded to the next width it is
+    built for, with the softmax scale of the true d: on the plain version
+    the padded call gives the unpadded output, and zeros in the padding."""
+    from toucan_tpu_torch.kernels.flash_attention import (BUILT_HEAD_DIMS,
+                                                          flash_rel_attention_plain,
+                                                          padded_inputs)
+
+    (q_u, q_v, k, v), p, lens = _attention_inputs(40, (40, 23), d=d, seed=d)
+    args = [torch.from_numpy(a) for a in (q_u, q_v, k, v, p)]
+    padded = padded_inputs(*args)
+    width = padded[0].shape[-1]
+    assert width == min(w for w in BUILT_HEAD_DIMS if w >= d)
+    assert all(a.shape[:-1] == b.shape[:-1] and b.shape[-1] == width
+               for a, b in zip(args, padded))
+    lengths = torch.from_numpy(lens)
+    want = flash_rel_attention_plain(*args, lengths)
+    got = flash_rel_attention_plain(*padded, lengths, scale=1.0 / np.sqrt(d))
+    np.testing.assert_allclose(got[..., :d].numpy(), want.numpy(), atol=2e-6)
+    assert not got[..., d:].any()
+    assert flash_rel_attention(*args, lengths).shape == want.shape
+
+
+def test_head_dim_past_128_raises():
+    """d > 128 raises ValueError before any launch (the checks run here on
+    CPU tensors, as the wrapper runs them on CUDA tensors)."""
+    from toucan_tpu_torch.kernels import flash_attention
+
+    (q_u, q_v, k, v), p, lens = _attention_inputs(8, (8, 3), d=136)
+    args = [torch.from_numpy(a) for a in (q_u, q_v, k, v, p, lens)]
+    with pytest.raises(ValueError, match="head dim 136 > 128"):
+        flash_attention._check(*args)
+    assert flash_rel_attention.launches == 0

@@ -56,6 +56,12 @@
 // floats, plus 4 x 16 x 56 floats for BD: 105 KB at d = 48 (two blocks per
 // SM, ~225 registers a thread), 133 KB at d = 64 (one).  The decoder at
 // B = 1, T = 2048 runs 128 blocks of 4 warps on the 132 SMs.
+// Widths: built for d in {16, 32, 48, 64, 96, 128}; the wrapper pads any
+// other d <= 128 with zero columns (which change no score) and passes the
+// softmax scale 1 / sqrt(d) of the true d.  Past d = 64 the split q
+// fragments would not fit in registers, so each key tile splits them from
+// shared memory again; at d = 128 the staging buffers would pass 227 KB,
+// so there is one, and a tile's loads no longer overlap the one before.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -74,9 +80,23 @@ constexpr int BDP = BDC + 8;      // padded BD row
 template <int D>
 __host__ __device__ constexpr int dp() { return D + 4; }
 
+// Up to d = 64 each warp keeps its split q fragments in registers; wider
+// heads would spill them, so they are split from shared memory per tile.
+template <int D>
+__host__ __device__ constexpr bool q_in_registers() { return D <= 64; }
+
+// K, V and p staging buffers: two (loads overlap compute) where they fit
+// in the 227 KB of shared memory, else one (d = 128).
+template <int D>
+__host__ __device__ constexpr int n_buffers() {
+  return (size_t)(2 * BQ + 2 * (2 * BK + NPW)) * dp<D>() + (size_t)NW * 16 * BDP <= 232448 / 4
+             ? 2
+             : 1;
+}
+
 template <int D>
 constexpr size_t smem_floats() {
-  return (size_t)2 * BQ * dp<D>() + 2 * (size_t)(2 * BK + NPW) * dp<D>() +
+  return (size_t)2 * BQ * dp<D>() + n_buffers<D>() * (size_t)(2 * BK + NPW) * dp<D>() +
          (size_t)NW * 16 * BDP;
 }
 
@@ -159,12 +179,15 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
   constexpr int NS = BK / 8;  // n-tiles of the score tile
   constexpr int NB = BDC / 8; // n-tiles of BD
   constexpr int STAGE = (2 * BK + NPW) * DP;
+  constexpr int NBUF = n_buffers<D>();
+  constexpr bool QREG = q_in_registers<D>();
+  constexpr int KQ = QREG ? KD : 1;
 
   extern __shared__ float4 smem4[];
   float* s_qu = reinterpret_cast<float*>(smem4);
   float* s_qv = s_qu + BQ * DP;
   float* s_stage = s_qv + BQ * DP;
-  float* s_bd_all = s_stage + 2 * STAGE;
+  float* s_bd_all = s_stage + NBUF * STAGE;
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -188,10 +211,10 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m_row[2] = {-INFINITY, -INFINITY};
   float l_part[2] = {0.f, 0.f};
-  uint32_t qub[KD][4], qus[KD][4], qvb[KD][4], qvs[KD][4];  // split q fragments
+  uint32_t qub[KQ][4], qus[KQ][4], qvb[KQ][4], qvs[KQ][4];  // split q fragments (QREG)
 
   auto stage_tile = [&](int kt) {
-    float* s = s_stage + (kt & 1) * STAGE;
+    float* s = s_stage + (kt % NBUF) * STAGE;
     const int j0 = kt * BK;
     stage_rows<D>(s, kg + base, j0, BK, T);
     stage_rows<D>(s + BK * DP, vg + base, j0, BK, T);
@@ -206,7 +229,13 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
   }
 
   for (int kt = 0; kt < n_kt; ++kt) {
-    if (kt + 1 < n_kt) {
+    if constexpr (NBUF == 1) {
+      if (kt > 0) {  // the barrier closing tile kt - 1 freed the buffer
+        stage_tile(kt);
+        cp_async_commit();
+      }
+      cp_async_wait<0>();
+    } else if (kt + 1 < n_kt) {
       stage_tile(kt + 1);
       cp_async_commit();
       cp_async_wait<1>();
@@ -214,12 +243,12 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* s_k = s_stage + (kt & 1) * STAGE;
+    const float* s_k = s_stage + (kt % NBUF) * STAGE;
     const float* s_v = s_k + BK * DP;
     const float* s_p = s_v + BK * DP;
-    if (kt == 0) {
+    if (QREG && kt == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
+      for (int kk = 0; kk < KQ; ++kk) {
         load_a(s_qu, DP, rw, kk * 8, g, t, qub[kk], qus[kk]);
         load_a(s_qv, DP, rw, kk * 8, g, t, qvb[kk], qvs[kk]);
       }
@@ -233,8 +262,13 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
       for (int e = 0; e < 4; ++e) bd[n][e] = 0.f;
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      const uint32_t(&ab)[4] = qvb[kk];
-      const uint32_t(&as)[4] = qvs[kk];
+      uint32_t ab[4], as[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ab[e] = qvb[kk][e], as[e] = qvs[kk][e];
+      } else {
+        load_a(s_qv, DP, rw, kk * 8, g, t, ab, as);
+      }
 #pragma unroll
       for (int n = 0; n < NB; ++n) {
         uint32_t bb[2], bs[2];
@@ -262,8 +296,13 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
     }
 #pragma unroll
     for (int kk = 0; kk < KD; ++kk) {
-      const uint32_t(&ab)[4] = qub[kk];
-      const uint32_t(&as)[4] = qus[kk];
+      uint32_t ab[4], as[4];
+      if constexpr (QREG) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ab[e] = qub[kk][e], as[e] = qus[kk][e];
+      } else {
+        load_a(s_qu, DP, rw, kk * 8, g, t, ab, as);
+      }
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         uint32_t bb[2], bs[2];
@@ -356,14 +395,13 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
 template <int D>
 cudaError_t launch(const float* qu, const float* qv, const float* k, const float* v,
                    const float* p, const int* lengths, float* out, int B, int H, int T,
-                   cudaStream_t stream) {
+                   float scale, cudaStream_t stream) {
   const size_t smem = smem_floats<D>() * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_rel_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  flash_rel_kernel<D><<<grid, NT, smem, stream>>>(qu, qv, k, v, p, lengths, out, H, T,
-                                                  1.0f / sqrtf((float)D));
+  flash_rel_kernel<D><<<grid, NT, smem, stream>>>(qu, qv, k, v, p, lengths, out, H, T, scale);
   return cudaGetLastError();
 }
 
@@ -371,7 +409,8 @@ cudaError_t launch(const float* qu, const float* qv, const float* k, const float
 
 extern "C" int flash_rel_attention_f32(const void* qu, const void* qv, const void* k,
                                        const void* v, const void* p, const void* lengths,
-                                       void* out, int B, int H, int T, int D, void* stream) {
+                                       void* out, int B, int H, int T, int D, float scale,
+                                       void* stream) {
   if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   const auto* a = static_cast<const float*>(qu);
@@ -383,10 +422,12 @@ extern "C" int flash_rel_attention_f32(const void* qu, const void* qv, const voi
   auto* o = static_cast<float*>(out);
   auto s = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return (int)launch<16>(a, b, kk, vv, pp, ll, o, B, H, T, s);
-    case 32: return (int)launch<32>(a, b, kk, vv, pp, ll, o, B, H, T, s);
-    case 48: return (int)launch<48>(a, b, kk, vv, pp, ll, o, B, H, T, s);
-    case 64: return (int)launch<64>(a, b, kk, vv, pp, ll, o, B, H, T, s);
+    case 16: return (int)launch<16>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 32: return (int)launch<32>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 48: return (int)launch<48>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 64: return (int)launch<64>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 96: return (int)launch<96>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 128: return (int)launch<128>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

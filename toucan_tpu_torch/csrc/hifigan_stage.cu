@@ -29,7 +29,7 @@
 //    k = 11 stack), so tiles never wait on each other.  The valid region
 //    shrinks by each conv's padding, so every conv computes only the rows
 //    that later convs read.
-//  - A thread-block cluster of `cluster` blocks (1, 2 or 4; launched with
+//  - A thread-block cluster of `cluster` blocks (1, 2, 4 or 8; launched with
 //    cudaLaunchKernelEx and a cluster dimension) takes one tile at a time
 //    and splits the output channels: block r computes channels
 //    [r * NB, (r + 1) * NB) of every conv (NB = 64, or 32), reads the full
@@ -398,7 +398,8 @@ cudaError_t max_clusters(const StageArgs& args, int* n) {
 
 bool valid(const StageArgs& a) {
   const int nb = a.cluster > 0 ? a.C / a.cluster : 0;
-  return a.B > 0 && a.T > 0 && a.tile > 0 && a.cluster >= 1 && a.cluster <= 4 &&
+  return a.B > 0 && a.T > 0 && a.tile > 0 && a.cluster >= 1 &&
+         a.cluster <= (nb == 64 ? 8 : 4) &&
          (nb == 32 || nb == 64) && nb * a.cluster == a.C && a.ks[0] <= a.ks[1] &&
          a.ks[1] <= a.ks[2] && a.dil[0] <= a.dil[1] && a.dil[1] <= a.dil[2] &&
          a.halo >= stack_halo(a.ks[2], a.dil);
@@ -409,8 +410,9 @@ bool valid(const StageArgs& a) {
 // x, out (B, T, C); w2 the 18 convs packed as in StageWeights.w, each
 // weight split into its TF32 (big, small) pair: (conv, k, C_in, C_out, 2);
 // bias (18, C); scratch (grid / cluster) * 2 * (tile + 2 * halo) * C floats.
-// C / cluster is 64 or 32 with at most 4 blocks a cluster; kernel sizes and
-// dilations ascending; x 16-byte aligned.
+// C / cluster is 64 with at most 8 blocks a cluster (Hopper's portable
+// size) or 32 with at most 4; kernel sizes and dilations ascending; x
+// 16-byte aligned.
 extern "C" int hifigan_stage_f32(const void* x, const void* w2, const void* bias, void* out,
                                  void* scratch, int B, int T, int C, int k0, int k1, int k2,
                                  int d0, int d1, int d2, int tile, int halo, int cluster,

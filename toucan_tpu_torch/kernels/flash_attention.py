@@ -3,7 +3,9 @@
 Counterpart of ``toucan_tpu/kernels/pallas_attention.py``.  The kernel is
 ``csrc/flash_rel_attention.cu``.  ``flash_rel_attention`` launches it for
 CUDA tensors and runs ``flash_rel_attention_plain`` for CPU tensors; any
-other device raises.
+other device raises.  The kernel is built for the head dims in
+``BUILT_HEAD_DIMS``; any other d up to 128 goes in zero-padded to the next
+of them (``padded_inputs``).
 """
 
 from __future__ import annotations
@@ -15,22 +17,37 @@ import torch
 
 from toucan_tpu_torch.kernels import build
 
-SUPPORTED_HEAD_DIMS = (16, 32, 48, 64)
+BUILT_HEAD_DIMS = (16, 32, 48, 64, 96, 128)
+MAX_HEAD_DIM = BUILT_HEAD_DIMS[-1]
 
 
-def flash_rel_attention_plain(q_u, q_v, k, v, p, lengths):
-    """softmax(((q_u.k) + rel_shift(q_v.p)) / sqrt(d)) . v with a key mask.
+def padded_inputs(q_u, q_v, k, v, p):
+    """(q_u, q_v, k, v, p) with the head dim zero-padded to the next built
+    width, or as they are where d is built.  Zero columns add nothing to
+    q_u . k or q_v . p, so the scores are those of the true d (scaled by
+    1 / sqrt(d) of the true d), and the output's extra columns are 0 and
+    cut off.  d <= MAX_HEAD_DIM (``_check`` raises past it)."""
+    d = q_u.shape[-1]
+    width = next(w for w in BUILT_HEAD_DIMS if w >= d)
+    if width == d:
+        return q_u, q_v, k, v, p
+    return tuple(torch.nn.functional.pad(x, (0, width - d)) for x in (q_u, q_v, k, v, p))
+
+
+def flash_rel_attention_plain(q_u, q_v, k, v, p, lengths, scale=None):
+    """softmax(((q_u.k) + rel_shift(q_v.p)) * scale) . v with a key mask.
 
     q_u, q_v, k, v (B, H, T, d); p (H, 2T-1, d) with row T-1 = offset 0;
-    lengths (B,) valid key counts.  Keys >= lengths[b] are masked; rows with
-    no valid key give 0; padded query rows attend to the valid keys.
+    lengths (B,) valid key counts; scale 1 / sqrt(d) by default.  Keys >=
+    lengths[b] are masked; rows with no valid key give 0; padded query rows
+    attend to the valid keys.
     """
     b, h, t, d = q_u.shape
     ar = torch.arange(t, device=q_u.device)
     ac = q_u @ k.transpose(-1, -2)                               # (B,H,T,T)
     bd = q_v @ p.transpose(-1, -2)[None]                         # (B,H,T,2T-1)
     rel = (t - 1 - ar[:, None] + ar[None, :]).expand(b, h, t, t)
-    scores = (ac + bd.gather(-1, rel)) * (1.0 / math.sqrt(d))
+    scores = (ac + bd.gather(-1, rel)) * (1.0 / math.sqrt(d) if scale is None else scale)
     key_ok = (ar[None, :] < lengths[:, None].to(ar.dtype))[:, None, None, :]
     scores = scores.masked_fill(~key_ok, torch.finfo(scores.dtype).min)
     attn = torch.softmax(scores, dim=-1).masked_fill(~key_ok, 0.0)
@@ -56,8 +73,9 @@ def _check(q_u, q_v, k, v, p, lengths):
             raise ValueError("all inputs must be on one device")
     build.check_aligned("flash_rel_attention", q_u=q_u, q_v=q_v, k=k, v=v, p=p)
     build.check_no_grad("flash_rel_attention", q_u=q_u, q_v=q_v, k=k, v=v, p=p)
-    if d not in SUPPORTED_HEAD_DIMS:
-        raise ValueError(f"head dim {d} not built; supported: {SUPPORTED_HEAD_DIMS}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {d} > {MAX_HEAD_DIM}: the kernel takes at most "
+                         f"{MAX_HEAD_DIM}")
     if t < 1 or b > 65535 or h > 65535:
         raise ValueError(f"unsupported shape B={b} H={h} T={t}")
 
@@ -66,6 +84,7 @@ def flash_rel_attention(q_u, q_v, k, v, p, lengths):
     """Launch the CUDA kernel on CUDA tensors; plain version on CPU tensors.
 
     Same arguments as ``flash_rel_attention_plain``; returns (B, H, T, d) f32.
+    A head dim the kernel is not built for is zero-padded (``padded_inputs``).
     The kernel has no backward: on the card a call with grad enabled on an
     input that requires grad raises ValueError.
     """
@@ -77,16 +96,18 @@ def flash_rel_attention(q_u, q_v, k, v, p, lengths):
     lib = build.load("flash_rel_attention")
     fn = lib.flash_rel_attention_f32
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     b, h, t, d = q_u.shape
+    q_u, q_v, k, v, p = padded_inputs(q_u, q_v, k, v, p)
     out = torch.empty_like(q_u)
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
         err = fn(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
-                 p.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, t, d, stream)
+                 p.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, t, q_u.shape[-1],
+                 1.0 / math.sqrt(d), stream)
     build.check(lib, err, "flash_rel_attention")
     flash_rel_attention.launches += 1
-    return out
+    return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
 flash_rel_attention.launches = 0

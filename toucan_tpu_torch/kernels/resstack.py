@@ -6,7 +6,9 @@ and runs ``hifigan_stage_plain`` for CPU tensors; any other device raises.
 One call computes one vocoder stage: three residual stacks of six convs
 each, averaged.  ``stage_tiling`` picks each launch's time tile and
 cluster size; the kernel reads a TF32-split copy of the weights that
-``hifigan_stage`` makes once per ``StageWeights``.
+``hifigan_stage`` makes once per ``StageWeights``.  The kernel takes C a
+multiple of 32 up to 128 or of 64 up to 512; any other width up to 512
+runs widened with zero channels (``widened``), which is exact.
 """
 
 from __future__ import annotations
@@ -83,7 +85,25 @@ def stage_halo(kernel_sizes, dilations) -> int:
 
 L2_SCRATCH_BYTES = 24 << 20   # streams of all clusters in flight: under half the 50 MB L2
 MIN_TILE = 8
-MAX_CLUSTER = 4   # HiFiGAN's widest stage, C = 256, is 4 blocks of 64
+MAX_CLUSTER = 8   # Hopper's portable cluster size: C = 512 is 8 blocks of 64
+MAX_CHANNELS = 512
+
+
+def _block_options(channels: int):
+    """(NB, cluster) pairs K2 can run C channels with: blocks of 64 channels
+    in clusters of up to 8, or of 32 in clusters of up to 4."""
+    return [(nb, channels // nb) for nb in (64, 32)
+            if channels % nb == 0 and channels // nb <= MAX_CLUSTER * nb // 64]
+
+
+def kernel_channels(c: int) -> int:
+    """The width K2 runs a stage of C channels at: C rounded up to a
+    multiple of 32 up to 128 (clusters of up to 4 blocks of 32), else of 64
+    (up to 8 blocks of 64).  Raises ValueError past MAX_CHANNELS."""
+    if not 1 <= c <= MAX_CHANNELS:
+        raise ValueError(f"K2 takes 1 .. {MAX_CHANNELS} channels, got {c}")
+    step = 32 if c <= 128 else 64
+    return -(-c // step) * step
 
 
 @dataclass(frozen=True)
@@ -125,10 +145,10 @@ def stage_tiling(b: int, t: int, channels: int, n_sm: int, kernel_sizes, dilatio
                  clusters_in_flight=None) -> StageTiling:
     """Pick K2's time tile and cluster size for one call.
 
-    Options: NB = 64 channels per block (cluster C / 64) or NB = 32 (C / 32),
-    clusters of at most 4 blocks.  ``clusters_in_flight``:
-    ((cluster, clusters the card runs at once), ...) as the device reports
-    it; default n_sm // cluster.  For each option and each number of waves
+    Options: NB = 64 channels per block (cluster C / 64, at most 8) or NB =
+    32 (C / 32, at most 4), C first widened by ``kernel_channels``.
+    ``clusters_in_flight``: ((cluster, clusters the card runs at once), ...)
+    as the device reports it; default n_sm // cluster.  For each option and each number of waves
     w, the tile is the smallest that needs only w waves of clusters; the
     estimate is waves x ``_tile_cost``, and the cheapest wins (ties: fewer
     waves, then smaller clusters).  So a stage fills the card unless its
@@ -138,10 +158,8 @@ def stage_tiling(b: int, t: int, channels: int, n_sm: int, kernel_sizes, dilatio
     kernel_sizes, dilations = tuple(kernel_sizes), tuple(dilations)
     halo = stage_halo(kernel_sizes, dilations)
     in_flight = dict(clusters_in_flight or ())
-    options = [(nb, channels // nb) for nb in (64, 32)
-               if channels % nb == 0 and channels // nb <= MAX_CLUSTER]
-    if not options:
-        raise ValueError(f"K2 takes C = 32 x (1 .. 4) or 64 x (1 .. 4) channels, got {channels}")
+    channels = kernel_channels(channels)
+    options = _block_options(channels)
     floor = 2 * len(dilations) * sum(kernel_sizes)   # one pass per conv
     best = None
     for nb, cs in options:
@@ -189,7 +207,9 @@ _max_clusters_cache: dict = {}
 
 
 def _clusters_in_flight(device, channels, kernel_sizes, dilations):
-    """((cluster, clusters the device runs at once), ...) for K2's options."""
+    """((cluster, clusters the device runs at once), ...) for K2's options
+    at the kernel's width of ``channels``."""
+    channels = kernel_channels(channels)
     key = (device.index, channels, kernel_sizes[-1], dilations[-1])
     if key not in _max_clusters_cache:
         lib = build.load("hifigan_stage")
@@ -197,9 +217,7 @@ def _clusters_in_flight(device, channels, kernel_sizes, dilations):
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         pairs = []
-        for nb in (64, 32):
-            if channels % nb or channels // nb > MAX_CLUSTER:
-                continue
+        for nb, _ in _block_options(channels):
             n = ctypes.c_int(0)
             with torch.cuda.device(device):
                 err = fn(channels, channels // nb, kernel_sizes[-1], dilations[-1],
@@ -208,6 +226,25 @@ def _clusters_in_flight(device, channels, kernel_sizes, dilations):
             pairs.append((channels // nb, n.value))
         _max_clusters_cache[key] = tuple(pairs)
     return _max_clusters_cache[key]
+
+
+def widened(sw: StageWeights, c: int) -> StageWeights:
+    """``sw`` with zero channels added up to ``c``: zero weights into and out
+    of them and zero bias, so their stream stays lrelu(0) = 0 through every
+    conv and residual, and the other channels' sums gain only exact zeros."""
+    pad = c - sw.channels
+    convs = [(F.pad(w, (0, 0, 0, pad, 0, pad)), F.pad(b, (0, pad)))
+             for w, b, _ in sw.conv_weights()]
+    return pack_stage(convs, c, sw.kernel_sizes, sw.dilations, sw.slope)
+
+
+def _widened(sw: StageWeights) -> StageWeights:
+    """``widened(sw, kernel_channels(C))``, made once per StageWeights."""
+    cached = sw.__dict__.get("_widened")
+    if cached is None or cached.w.device != sw.w.device:
+        cached = widened(sw, kernel_channels(sw.channels))
+        object.__setattr__(sw, "_widened", cached)
+    return cached
 
 
 def tiling_for(x: torch.Tensor, sw: StageWeights) -> StageTiling:
@@ -221,9 +258,11 @@ def tiling_for(x: torch.Tensor, sw: StageWeights) -> StageTiling:
 def hifigan_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
     """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
 
-    x (B, T, C) f32 contiguous; returns (B, T, C) f32.  The kernel has no
-    backward: on the card a call with grad enabled on an input that requires
-    grad raises ValueError.
+    x (B, T, C) f32 contiguous, C <= 512 on the card; returns (B, T, C)
+    f32.  Other widths than the kernel's run widened with zero channels
+    (``kernel_channels``, ``widened``).  The kernel has no backward: on the
+    card a call with grad enabled on an input that requires grad raises
+    ValueError.
     """
     if x.device.type == "cpu":
         return hifigan_stage_plain(x, sw)
@@ -231,6 +270,9 @@ def hifigan_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
         raise ValueError(f"hifigan_stage takes cuda or cpu tensors, got {x.device}")
     _check(x, sw)
     b, t, c = x.shape
+    wide = kernel_channels(c)
+    if wide != c:
+        return hifigan_stage(F.pad(x, (0, wide - c)), _widened(sw))[..., :c].contiguous()
     tl = tiling_for(x, sw)
     w2 = _split_weights(sw)
     out = torch.empty_like(x)
@@ -263,8 +305,10 @@ def _check(x: torch.Tensor, sw: StageWeights):
         raise ValueError("x must be contiguous float32")
     if sw.w.device != x.device or sw.b.device != x.device:
         raise ValueError("stage weights must be on the input's device")
-    if len(sw.kernel_sizes) != 3 or len(sw.dilations) != 3 or sw.channels % 32 != 0:
-        raise ValueError("the kernel takes 3 stacks x 3 rounds and C % 32 == 0")
+    if len(sw.kernel_sizes) != 3 or len(sw.dilations) != 3:
+        raise ValueError("the kernel takes 3 stacks x 3 rounds")
+    if sw.channels > MAX_CHANNELS:
+        raise ValueError(f"the kernel takes C up to {MAX_CHANNELS}, got {sw.channels}")
     if list(sw.kernel_sizes) != sorted(sw.kernel_sizes) or \
             list(sw.dilations) != sorted(sw.dilations):
         raise ValueError("kernel sizes and dilations must be ascending")
