@@ -61,7 +61,10 @@ Phases, each reported on its own lines:
    CPU as in the ref phase;
 8. main: the full-width model (default ToucanTTSConfig, seeded random
    weights) through ``ToucanTTSInterface``, on four paths, each call with
-   its launches counted from 0:
+   its launches counted from 0.  The interface runs each bucket from a
+   CUDA graph: a launch inside a graph is counted at each replay, and a
+   bucket's first use adds its eager warm-up (one synthesis) unless
+   ``precompile`` made it; each call's log line says which:
    - HiFiGAN 512 channels: ``__call__`` on ~110 phones, ``__call__`` with
      explicit durations, ``synthesize_batch`` of four sentences and
      ``read_to_file``; K1 12 and K2 4 launches per synthesis;
@@ -79,6 +82,16 @@ Phases, each reported on its own lines:
      mel and GST); then ``__call__`` (first, steady, profiled), 8 frames per
      phone and ``synthesize_batch``; K1 12, K2 1 (stage 0) and K4 3 per
      synthesis; the int8 wave against the exact one of the same call;
+   after each path, graphs: ``precompile`` (each bucket's warm-up and
+   capture time and the memory its graph holds), the graph call's
+   durations, pitch, energy and wave against the eager call's
+   (``_eager``) on the same noise (wave within 1e-6), launches through
+   replays equal to one synthesis's, ``_vocode`` of that call's mel
+   through its 64-frame bucket against eager (within 1e-6), the steady ``__call__`` eager against
+   graph in turns (eager, graph, graph, eager, three times), the graph's
+   replay alone timed by CUDA events and the call's profiled idle share,
+   and ``read_to_file`` of two sentences, dispatch-ahead against one
+   sentence at a time, in turns;
 9. ref: the same weights on the CPU (plain versions) against the card, on a
    short input, for the four paths (imcol: the embedding from the same
    wave within 1e-4, and the wave within 1 % of its peak); and the HiFiGAN
@@ -86,7 +99,7 @@ Phases, each reported on its own lines:
    PyTorch's default ``cudnn.allow_tf32 = True`` set by the caller, which
    must give the durations and, within 1e-5, the mel (the wave, the
    embedding) of the same call with TF32 off, and leave the flags as they
-   were.
+   were (each of the two calls captures its own graph).
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -96,6 +109,7 @@ port's entry points pin f32 themselves.
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -103,13 +117,15 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 
 import numpy as np
 import torch
 
 from toucan_tpu_torch.frontend.text import TextFrontend
 from toucan_tpu_torch.infer.interface import (FRAMES_PER_PHONE, PHONE_BUCKET,
-                                              ToucanTTSInterface, _round_up)
+                                              SENTENCE_JOIN_SILENCE, ToucanTTSInterface,
+                                              _round_up, write_wav)
 from toucan_tpu_torch.kernels import aliasfree as aliasfree_module
 from toucan_tpu_torch.kernels import build
 from toucan_tpu_torch.kernels import imcol as imcol_module
@@ -129,6 +145,7 @@ from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
+from toucan_tpu_torch.nn import positional
 
 SEED = 0
 F32_PEAK = 67e12      # H100 SXM f32 CUDA-core FLOP/s (NVIDIA data sheet)
@@ -173,6 +190,10 @@ TOL_WAVE = 2e-5
 # the same f32 call with the caller's cudnn.allow_tf32 on and off: only
 # cuDNN's choice of algorithm may differ
 TOL_TF32_DEFAULT = 1e-5
+# a call through its bucket's CUDA graph against the same call run eagerly,
+# on the same noise: the same kernels on the same inputs, 0 expected
+TOL_GRAPH = 1e-6
+GRAPH_ROUNDS = 3   # rounds of (eager, graph, graph, eager) in phase_graphs
 K2_FRAMES = 512
 STAGE_SCALES = (8, 48, 192, 384)  # vocoder samples per mel frame after each stage
 # BigVGAN's stages at 512 channels: (samples per mel frame, channels)
@@ -990,10 +1011,19 @@ def phase_grad_refusal(dev, gen, vocoder):
     torch.cuda.synchronize()
 
 
-def drive(name, fn, expect, launches, waves_of=lambda out: [out], frame=384):
+def drive(name, fn, iface, per_call, launches, n=1, waves_of=lambda out: [out], frame=384,
+          bucketed=True, warm=None):
     """One main-path run: every count to 0, drive, synchronize, read the
-    counts.  ``expect`` {kernel: launches}; every other kernel must stay at
-    0.  Adds the counts to ``launches`` and checks the waves."""
+    counts.  ``per_call`` {kernel: launches of one synthesis}; the run makes
+    ``n`` syntheses and one warm-up for each bucket of ``iface`` that it
+    made (a bucket's first use, where ``precompile`` did not make it), and
+    every other kernel must stay at 0.  ``warm``: the number of buckets the
+    run must make (0 for a call after ``precompile`` or after its bucket's
+    first use), None where it is a first use.  ``bucketed``: fn goes
+    through the interface's buckets (not ``quantize_vocoder``'s
+    calibration or ``set_utterance_embedding``, which run eagerly).  Adds
+    the counts to ``launches`` and checks the waves."""
+    before = {id(b) for b in buckets(iface)}
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
     torch.cuda.synchronize()
@@ -1002,13 +1032,19 @@ def drive(name, fn, expect, launches, waves_of=lambda out: [out], frame=384):
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     got = {k: w.launches for k, w in WRAPPERS.items()}
-    for k, n in got.items():
-        launches[k] += n
+    for k, c in got.items():
+        launches[k] += c
+    warm, warm_want = sum(id(b) not in before for b in buckets(iface)), warm
+    how = ("eager" if iface._eager or not bucketed else
+           f"{warm} bucket(s) warmed up and captured, counted" if warm else "graph replays")
     waves = waves_of(out)
     audio = sum(len(w) for w in waves) / 24000
     log("main", f"{name}: latency_s={sec:.4f} audio_s={audio:.3f} "
-                f"audio_s_per_s={audio / sec:.3f} "
-                + " ".join(f"{k}_launches={n}" for k, n in got.items()))
+                f"audio_s_per_s={audio / sec:.3f} ({how}) "
+                + " ".join(f"{k}_launches={c}" for k, c in got.items()))
+    if warm_want is not None and warm != warm_want:
+        raise AssertionError(f"{name}: made {warm} bucket(s), expected {warm_want}")
+    expect = per_synthesis(n + warm, **per_call)
     want = {k: expect.get(k, 0) for k in WRAPPERS}
     if got != want:
         raise AssertionError(f"{name}: expected launches {want}, got {got}")
@@ -1016,6 +1052,10 @@ def drive(name, fn, expect, launches, waves_of=lambda out: [out], frame=384):
         if not (len(w) > 0 and len(w) % frame == 0 and np.isfinite(w).all()):
             raise AssertionError(f"{name}: bad wave (len {len(w)})")
     return out
+
+
+def buckets(iface):
+    return [*iface._e2e_cache.values(), *iface._vocoder_cache.values()]
 
 
 def per_synthesis(n, **kernels):
@@ -1034,31 +1074,34 @@ def phase_main(iface, launches, per_call, label):
     n = len(iface.text2phone.string_to_features(LONG_TEXT))
     log("main", f"{label}: text of {n} phones -> bucket {-(-n // 32) * 32}, "
                 f"{-(-n // 32) * 32 * 16} frames")
-    for name in ("call (first)", "call"):
+    for name, warm in (("call (first)", None), ("call", 0)):
         steady, dur, _, _ = drive(f"{label} {name}",
                                   lambda: iface(LONG_TEXT, return_duration_pitch_energy=True),
-                                  per_synthesis(1, **per_call), launches, lambda out: out[:1])
+                                  iface, per_call, launches, waves_of=lambda out: out[:1],
+                                  warm=warm)
         check_length(steady, dur)
     profiled_call(iface, launches, per_call, label)
     wave, dur, _, _ = drive(f"{label} call, 8 frames per phone",
                             lambda: iface(LONG_TEXT, durations=np.full(n, 8),
                                           return_duration_pitch_energy=True),
-                            per_synthesis(1, **per_call), launches, lambda out: out[:1])
+                            iface, per_call, launches, waves_of=lambda out: out[:1])
     check_length(wave, dur)
     log("main", f"{label} explicit durations: {len(wave) // 384} frames")
     drive(f"{label} synthesize_batch x4", lambda: iface.synthesize_batch(BATCH_TEXTS),
-          per_synthesis(1, **per_call), launches, list)
+          iface, per_call, launches, waves_of=list)
     return steady
 
 
 def profiled_call(iface, launches, per_call, label):
+    """One steady ``__call__`` under the profiler; returns the device's
+    idle share of it (None where the trace holds no device time)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                             torch.profiler.ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        drive(f"{label} call (profiled)", lambda: iface(LONG_TEXT), per_synthesis(1, **per_call),
-              launches)
+        drive(f"{label} call (profiled)", lambda: iface(LONG_TEXT), iface, per_call, launches,
+              warm=0)
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, wall_us, label)
+    return report_profile(prof, wall_us, label)
 
 
 def phase_main_hifigan(iface, launches):
@@ -1068,7 +1111,7 @@ def phase_main_hifigan(iface, launches):
         path = os.path.join(tmp, "out.wav")
         # the file joins the waves with silences of 10600 samples
         drive("hifigan read_to_file x2", lambda: iface.read_to_file(BATCH_TEXTS[:2], path),
-              per_synthesis(2, k1=12, k2=4), launches, frame=1)
+              iface, dict(k1=12, k2=4), launches, n=2, frame=1)
         log("main", f"read_to_file wrote {os.path.getsize(path)} bytes")
     return wave
 
@@ -1079,13 +1122,13 @@ def phase_main_int8(iface, launches):
     n = len(iface.text2phone.string_to_features(LONG_TEXT))
     z = (0.8 * np.random.RandomState(SEED + 1).randn(-(-n // 32) * 32 * 16, 80)).astype(np.float32)
     exact = drive("int8 path: exact call, fixed noise", lambda: iface(LONG_TEXT, glow_noise=z),
-                  per_synthesis(1, k1=12, k2=4), launches)
+                  iface, dict(k1=12, k2=4), launches)
     scales = drive("int8 path: quantize_vocoder (calibration pass)", iface.quantize_vocoder,
-                   per_synthesis(1, k1=12, k2=4), launches, lambda out: [])
+                   iface, dict(k1=12, k2=4), launches, waves_of=lambda out: [], bucketed=False)
     log("main", "int8 scales per stage (min..max): " + ", ".join(
         f"{i}: {v.min().item():.3e}..{v.max().item():.3e}" for i, v in scales.items()))
     wave = drive("int8 call, fixed noise", lambda: iface(LONG_TEXT, glow_noise=z),
-                 per_synthesis(1, k1=12, k3=4), launches)
+                 iface, dict(k1=12, k3=4), launches)
     if wave.shape != exact.shape:
         raise AssertionError(f"int8 wave of {wave.shape} against exact {exact.shape}")
     err, peak = float(np.abs(wave - exact).max()), float(np.abs(exact).max())
@@ -1096,10 +1139,10 @@ def phase_main_int8(iface, launches):
     if not (peak > 0 and err <= TOL_INT8_WAVE * peak and snr > INT8_SNR_DB):
         raise AssertionError("the int8 wave is too far from the exact one")
     for name in ("int8 call", "int8 call (steady)"):
-        drive(name, lambda: iface(LONG_TEXT), per_synthesis(1, k1=12, k3=4), launches)
+        drive(name, lambda: iface(LONG_TEXT), iface, dict(k1=12, k3=4), launches, warm=0)
     profiled_call(iface, launches, dict(k1=12, k3=4), "int8")
     drive("int8 synthesize_batch x4", lambda: iface.synthesize_batch(BATCH_TEXTS),
-          per_synthesis(1, k1=12, k3=4), launches, list)
+          iface, dict(k1=12, k3=4), launches, waves_of=list)
     return scales
 
 
@@ -1119,6 +1162,9 @@ def imcol_interface(paths, device=None):
                                 device=device, seed=SEED)
 
 
+IMCOL_PER_CALL = dict(k1=12, k2=1, k4=3)
+
+
 def phase_main_imcol(paths, ref_wave, launches):
     """Reference files -> interface with the int8 im2col vocoder -> the
     speaker from a 24 kHz wave -> the main path; the int8 wave against the
@@ -1126,21 +1172,22 @@ def phase_main_imcol(paths, ref_wave, launches):
     iface = imcol_interface(paths)
     for name in ("first", "steady"):
         drive(f"imcol set_utterance_embedding ({name}; 24 kHz wave, mel and GST on the card)",
-              lambda: iface.set_utterance_embedding(wave=ref_wave, sr=24000), {}, launches,
-              lambda out: [])
+              lambda: iface.set_utterance_embedding(wave=ref_wave, sr=24000), iface, {},
+              launches, waves_of=lambda out: [], bucketed=False)
     emb = iface.default_utterance_embedding
     log("main", f"imcol: embedding of a {len(ref_wave) / 24000:.3f} s wave, shape {emb.shape}, "
                 f"norm {np.linalg.norm(emb):.4f}")
-    per_call = dict(k1=12, k2=1, k4=3)
-    phase_main(iface, launches, per_call, "imcol")
+    phase_main(iface, launches, IMCOL_PER_CALL, "imcol")
     n = len(iface.text2phone.string_to_features(LONG_TEXT))
     z = (0.8 * np.random.RandomState(SEED + 1).randn(-(-n // 32) * 32 * 16, 80)).astype(np.float32)
     iface.vocoder.imcol_mode = None
+    iface._clear_caches()  # a graph keeps the vocoder's mode of its capture
     exact = drive("imcol path: exact call (imcol_mode None), fixed noise",
-                  lambda: iface(LONG_TEXT, glow_noise=z), per_synthesis(1, k1=12, k2=4), launches)
+                  lambda: iface(LONG_TEXT, glow_noise=z), iface, dict(k1=12, k2=4), launches)
     iface.vocoder.imcol_mode = "int8"
+    iface._clear_caches()
     wave = drive("imcol int8 call, fixed noise", lambda: iface(LONG_TEXT, glow_noise=z),
-                 per_synthesis(1, **per_call), launches)
+                 iface, IMCOL_PER_CALL, launches)
     if wave.shape != exact.shape:
         raise AssertionError(f"imcol wave of {wave.shape} against exact {exact.shape}")
     err, peak = float(np.abs(wave - exact).max()), float(np.abs(exact).max())
@@ -1153,6 +1200,166 @@ def phase_main_imcol(paths, ref_wave, launches):
     return iface
 
 
+def eager_mode(iface, eager):
+    iface._eager = eager
+    return iface
+
+
+def read_sequential(iface, texts, path):
+    """``read_to_file`` as it was before dispatch-ahead: each sentence
+    fetched before the next is enqueued."""
+    silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
+    pieces = [silence]
+    for text in texts:
+        pieces += [iface(text), silence]
+    write_wav(path, np.concatenate(pieces), 24000)
+
+
+def in_turns(runs, order, rounds):
+    """{name: [seconds, ...]}: each of ``runs`` ({name: fn}) timed on the
+    host clock to a synchronize, in ``order`` (a, b, b, a, ...), ``rounds``
+    times."""
+    times = {name: [] for name in runs}
+    for _ in range(rounds):
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[name]()
+            torch.cuda.synchronize()
+            times[name].append(time.perf_counter() - t0)
+    return times
+
+
+def steady(iface, fn):
+    """fn(), which must make no bucket: each of its calls replays a graph."""
+    before = {id(b) for b in buckets(iface)}
+    out = fn()
+    if {id(b) for b in buckets(iface)} != before:
+        raise AssertionError("a steady run made a new bucket")
+    return out
+
+
+def churn_position_tables(lengths, d_model):
+    """Drop every cached position table, hand the allocator's free memory
+    back to CUDA, and make, for each of ``lengths``, 40 tables of 1
+    to 40 positions fewer: each a little smaller than a table that a graph
+    reads, so that it fits in the memory such a table would leave free,
+    with other values.  Fails unless the tables of ``lengths``, which a
+    graph reads, outlive their cache.  Returns the new tables, to keep them
+    in place across the next replay."""
+    device = torch.device("cuda", torch.cuda.current_device())
+    read = [weakref.ref(positional._cached_table(length, d_model, device)) for length in lengths]
+    positional._cached_table.cache_clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if any(ref() is None for ref in read):
+        raise AssertionError("a position table that a graph reads was freed with its cache")
+    others = [positional.relative_position_encoding(length - k, d_model, device)
+              for length in lengths for k in range(1, 41)]
+    torch.cuda.synchronize()
+    return others
+
+
+def phase_graphs(iface, per_call, label, launches):
+    """The CUDA-graph path against the eager one on one interface:
+    ``precompile`` (each bucket's warm-up and capture time and the memory
+    its capture added to the interface's one pool), the graph call's
+    durations and wave against the eager call's on the same noise, and
+    again after the position-table cache was churned, launch counts through
+    replays, ``_vocode`` through its bucket against eager, the steady
+    ``__call__`` eager against graph in turns, the graph call's profiled
+    idle share, and ``read_to_file`` of two sentences, dispatch-ahead
+    against one sentence at a time, in turns.  Every call after
+    ``precompile`` replays a graph made before it, but ``_vocode``'s first."""
+    texts = BATCH_TEXTS[:2]
+    n = len(iface.text2phone.string_to_features(LONG_TEXT))
+    phone_buckets = sorted({PHONE_BUCKET, 4 * PHONE_BUCKET, _round_up(n, PHONE_BUCKET)}
+                           | {_round_up(len(iface.text2phone.string_to_features(t)),
+                                        PHONE_BUCKET) for t in texts})
+    iface._clear_caches()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    iface.precompile(phone_buckets=phone_buckets)
+    for key, bucket in iface._e2e_cache.items():
+        log("graphs", f"{label}: precompile bucket (B, phones, frames, durations, pitch, "
+                      f"energy) = {key}: warm-up and capture {bucket.capture_s * 1e3:.1f} ms, "
+                      f"its capture added {bucket.reserved_bytes / 2 ** 20:.1f} MiB to the pool")
+    log("graphs", f"{label}: precompile of phone buckets {phone_buckets}: the interface's graphs "
+                  f"hold {(torch.cuda.memory_reserved() - reserved) / 2 ** 20:.1f} MiB "
+                  f"in all (one pool)")
+    z = (0.8 * np.random.RandomState(SEED + 3).randn(-(-n // 32) * 32 * 16, 80)).astype(np.float32)
+
+    def fixed_noise_call():
+        return iface(LONG_TEXT, glow_noise=z, return_duration_pitch_energy=True)
+
+    def check_equal(graph, eager, what):
+        same = all(np.array_equal(g, e) for g, e in zip(graph[1:], eager[1:]))
+        err = (float(np.abs(graph[0] - eager[0]).max()) if graph[0].shape == eager[0].shape
+               else float("inf"))
+        log("graphs", f"{label}: {what} against eager on the same noise: durations, pitch and "
+                      f"energy {'equal' if same else 'DIFFER'}, wave max_abs_err={err:.3e} "
+                      f"(tolerance {TOL_GRAPH})")
+        if not (same and err <= TOL_GRAPH):
+            raise AssertionError(f"{label}: the {what} disagrees with the eager call")
+    graph = drive(f"{label} graph call, fixed noise (precompiled)", fixed_noise_call, iface,
+                  per_call, launches, waves_of=lambda out: out[:1], warm=0)
+    eager = drive(f"{label} eager call, fixed noise", fixed_noise_call,
+                  eager_mode(iface, True), per_call, launches, waves_of=lambda out: out[:1],
+                  warm=0)
+    eager_mode(iface, False)
+    check_equal(graph, eager, "graph call")
+    n_pad = _round_up(n, PHONE_BUCKET)
+    others = churn_position_tables((n_pad, n_pad * FRAMES_PER_PHONE), iface.config.adim)
+    again = drive(f"{label} graph call, fixed noise, after the position tables were dropped "
+                  f"from their cache and {len(others)} others made", fixed_noise_call, iface,
+                  per_call, launches, waves_of=lambda out: out[:1], warm=0)
+    del others
+    check_equal(again, eager, "graph call after the table cache was churned")
+    (_, after, *_, lens), _ = iface._dispatch_call(LONG_TEXT, glow_noise=z)
+    mel = after[0, :int(lens[0])].cpu().numpy()
+    per_vocoder = {k: c for k, c in per_call.items() if k != "k1"}
+    for name, warm in (("first", 1), ("steady", 0)):
+        wave = drive(f"{label} _vocode of the call's mel ({name})", lambda: iface._vocode(mel),
+                     iface, per_vocoder, launches, warm=warm)
+    want = drive(f"{label} _vocode, eager", lambda: iface._vocode(mel), eager_mode(iface, True),
+                 per_vocoder, launches, warm=0)
+    eager_mode(iface, False)
+    err = float(np.abs(wave - want).max()) if wave.shape == want.shape else float("inf")
+    log("graphs", f"{label}: _vocode graph against eager: max_abs_err={err:.3e} "
+                  f"(tolerance {TOL_GRAPH})")
+    if not err <= TOL_GRAPH:
+        raise AssertionError(f"{label}: _vocode's graph disagrees with its eager run")
+    times = steady(iface, lambda: in_turns(
+        {"eager": lambda: eager_mode(iface, True)(LONG_TEXT),
+         "graph": lambda: eager_mode(iface, False)(LONG_TEXT)},
+        ("eager", "graph", "graph", "eager"), GRAPH_ROUNDS))
+    eager_mode(iface, False)
+    log("graphs", f"{label}: steady __call__ in turns (eager, graph, graph, eager) x "
+                  f"{GRAPH_ROUNDS}: " + "; ".join(
+                      f"{k} median {1e3 * np.median(v):.2f} ms ("
+                      + ", ".join(f"{1e3 * t:.2f}" for t in v) + ")" for k, v in times.items()))
+    bucket = iface._e2e_cache[(1, _round_up(n, PHONE_BUCKET),
+                               _round_up(n, PHONE_BUCKET) * FRAMES_PER_PHONE, False, False, False)]
+    replay_ms, call_ms = time_ms(bucket.graph.replay, 5), 1e3 * np.median(times["graph"])
+    log("graphs", f"{label}: the bucket's graph replayed alone takes {replay_ms:.2f} ms of device "
+                  f"time (CUDA events): the device is idle {100 * (1 - replay_ms / call_ms):.1f}% "
+                  f"of the median graph call ({call_ms:.2f} ms)")
+    profiled_call(iface, launches, per_call, f"{label} graph")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "out.wav")
+        drive(f"{label} read_to_file x2 (dispatch-ahead)",
+              lambda: iface.read_to_file(texts, path), iface, per_call, launches, n=2, frame=1,
+              warm=0)
+        times = steady(iface, lambda: in_turns(
+            {"sequential": lambda: read_sequential(iface, texts, path),
+             "dispatch-ahead": lambda: iface.read_to_file(texts, path)},
+            ("sequential", "dispatch-ahead", "dispatch-ahead", "sequential"), GRAPH_ROUNDS))
+    log("graphs", f"{label}: read_to_file of 2 sentences in turns x {GRAPH_ROUNDS}: " + "; ".join(
+        f"{k} median {1e3 * np.median(v):.2f} ms (" + ", ".join(f"{1e3 * t:.2f}" for t in v) + ")"
+        for k, v in times.items()))
+
+
 def report_profile(prof, wall_us, label):
     """Device time by kernel and the device's busy share of one __call__."""
     kernels = [e for e in prof.key_averages()
@@ -1160,7 +1367,7 @@ def report_profile(prof, wall_us, label):
     busy = sum(e.self_device_time_total for e in kernels)
     if not kernels:
         log("profile", "no device time in the trace: device breakdown not measured")
-        return
+        return None
     log("profile", f"{label}, one __call__: wall {wall_us / 1e3:.2f} ms, "
                    f"device busy {busy / 1e3:.2f} ms "
                    f"({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}%")
@@ -1171,6 +1378,7 @@ def report_profile(prof, wall_us, label):
             if short in name:
                 name = f"{short} (port kernel)"
         log("profile", f"{e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {name[:90]}")
+    return 1 - busy / wall_us
 
 
 def phase_ref(label, iface, cpu, tol_wave, relative=False):
@@ -1211,32 +1419,31 @@ def phase_ref(label, iface, cpu, tol_wave, relative=False):
 
 
 def phase_tf32_default(iface):
-    """``check_tf32_default`` on the HiFiGAN interface call: its durations
-    and the mel it gives the vocoder."""
+    """``check_tf32_default`` on the HiFiGAN interface's dispatch of a
+    sentence: its durations and its mel, each run captured anew."""
     text = "Hello world, this is a test."
     z = (0.8 * np.random.RandomState(SEED).randn(512, 80)).astype(np.float32)
-    mels = []
-    hook = iface.vocoder.register_forward_pre_hook(
-        lambda _, args: mels.append(args[0].detach().cpu().numpy()))
 
     def call():
-        _, dur, _, _ = iface(text, glow_noise=z, return_duration_pitch_energy=True)
-        return np.concatenate([np.ravel(dur).astype(np.float32), mels[-1].ravel()])
-    try:
-        check_tf32_default("hifigan __call__ (durations and mel)", call)
-    finally:
-        hook.remove()
+        (_, after, dur, *_), _ = iface._dispatch_call(text, glow_noise=z)
+        return np.concatenate([dur.cpu().numpy().ravel().astype(np.float32),
+                               after.cpu().numpy().ravel()])
+    check_tf32_default("hifigan __call__ (durations and mel)", call, iface._clear_caches)
 
 
-def check_tf32_default(label, fn):
+def check_tf32_default(label, fn, reset=lambda: None):
     """fn(), an entry point's output, with the caller's cudnn.allow_tf32
-    off and then on, as PyTorch's default has it: the entry points pin f32,
-    so the two agree within TOL_TF32_DEFAULT (a wave of another length, from
-    other durations, fails), and the caller's flags are as it set them."""
+    off and then on, as PyTorch's default has it: the entry points pin f32
+    (a graph is captured inside ``f32_precision``; ``reset`` drops the
+    interface's graphs before each run, so that each run captures its own
+    under the caller's flags), so the two agree within TOL_TF32_DEFAULT (a
+    wave of another length, from other durations, fails), and the caller's
+    flags are as it set them."""
     outs = []
     try:
         for allow in (False, True):
             torch.backends.cudnn.allow_tf32 = allow
+            reset()
             outs.append(np.asarray(fn()))
             flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
             if flags != (allow, False):
@@ -1294,18 +1501,21 @@ def main():
     launches = dict.fromkeys(WRAPPERS, 0)
     iface = ToucanTTSInterface(tts_sd, voc_sd, seed=SEED)
     ref_wave = phase_main_hifigan(iface, launches)
+    phase_graphs(iface, dict(k1=12, k2=4), "hifigan", launches)
     phase_ref("hifigan", iface, ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED),
               TOL_REF)
     phase_tf32_default(iface)
     big = ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan", seed=SEED)
     phase_main(big, launches, dict(k1=12, k5=K5_LAUNCHES), "bigvgan")
+    phase_graphs(big, dict(k1=12, k5=K5_LAUNCHES), "bigvgan", launches)
     phase_ref("bigvgan", big, ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan",
                                                  device="cpu", seed=SEED), TOL_REF)
     z = (0.8 * np.random.RandomState(SEED).randn(512, 80)).astype(np.float32)
     check_tf32_default("bigvgan __call__ (wave)",
-                       lambda: big("Hello world, this is a test.", glow_noise=z))
+                       lambda: big("Hello world, this is a test.", glow_noise=z), big._clear_caches)
     del big
     scales = phase_main_int8(iface, launches)
+    phase_graphs(iface, dict(k1=12, k3=4), "int8", launches)
     cpu_int8 = ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED)
     cpu_int8.quantize_vocoder(act_scales={i: v.cpu() for i, v in scales.items()})
     phase_ref("int8 hifigan", iface, cpu_int8, TOL_REF_INT8, relative=True)
@@ -1317,6 +1527,7 @@ def main():
     with tempfile.TemporaryDirectory() as tmp:
         paths = write_reference_files(tmp, tts_sd, voc_sd, gst_sd, default_emb)
         imcol = phase_main_imcol(paths, ref_wave, launches)
+        phase_graphs(imcol, IMCOL_PER_CALL, "imcol", launches)
         cpu_imcol = imcol_interface(paths, device="cpu")
     cpu_imcol.set_utterance_embedding(wave=ref_wave, sr=24000)
     emb_err = float(np.abs(imcol.default_utterance_embedding

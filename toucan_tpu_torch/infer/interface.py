@@ -12,10 +12,24 @@ on the device without a host round trip; frames past each mel length are
 zeroed before vocoding.  Every entry point runs its convs and matmuls in
 f32 (``utils.device.f32_precision``) whatever the caller's TF32 settings,
 and leaves those settings as it found them.
+
+As the JAX interface jits one function per bucket, the port keeps one
+``infer.capture.Bucket`` per (batch size, phone bucket, frame bucket,
+which of durations/pitch/energy were given) in ``_e2e_cache``, and one per
+64-frame bucket in ``_vocoder_cache``: on the card a CUDA graph, captured at
+the bucket's first use or by ``precompile`` and replayed after that; on the
+CPU the same buckets run eagerly.  All graphs of an interface capture into
+one memory pool, so a new bucket adds only what its graph needs beyond
+what the pool already holds.  The knobs are a (4,) tensor that only
+the device reads, so they never make a new bucket.  ``_dispatch_call``
+enqueues a sentence without waiting for the device, and ``read_to_file``
+enqueues every sentence before it fetches the first.  A graph fixes the
+vocoder's mode at its capture: ``quantize_vocoder`` clears the caches.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 import wave as wave_mod
@@ -27,6 +41,7 @@ from torch import nn
 
 from toucan_tpu_torch.frontend.audio import AudioPreprocessor, read_wav
 from toucan_tpu_torch.frontend.text import TextFrontend, language_id
+from toucan_tpu_torch.infer.capture import Bucket
 from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
@@ -79,6 +94,10 @@ class ToucanTTSInterface:
         self.set_language(language)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._voc_act_scales = None  # set by quantize_vocoder (int8 stages)
+        self._e2e_cache = {}         # fused text -> wave buckets
+        self._vocoder_cache = {}     # mel -> wave buckets of _vocode
+        self._graph_pool = None      # the memory pool all buckets' graphs capture into
+        self._eager = False          # run every call eagerly, no bucket (comparisons)
         if default_embedding is None and self.config.utt_embed_dim is not None:
             default_embedding = np.zeros(self.config.utt_embed_dim, np.float32)
         self.default_utterance_embedding = (
@@ -142,7 +161,22 @@ class ToucanTTSInterface:
             scales = calibrate_act_scales(self.vocoder, mel)
         self._voc_act_scales = scales
         self.vocoder.stage_mode = "int8"
+        self._clear_caches()
         return scales
+
+    def _clear_caches(self):
+        """Drop every captured bucket: a graph keeps the vocoder's mode and
+        scales of its capture."""
+        self._e2e_cache.clear()
+        self._vocoder_cache.clear()
+        self._graph_pool = None
+
+    def _bucket(self, step, inputs: dict) -> Bucket:
+        """A ``Bucket`` on the interface's device; on the card its graph
+        captures into the pool that the interface's other graphs share."""
+        if self.device.type == "cuda" and self._graph_pool is None:
+            self._graph_pool = torch.cuda.graph_pool_handle()
+        return Bucket(step, inputs, self.device, self._graph_pool)
 
     @torch.inference_mode()
     def _calibration_mel(self, text: str) -> torch.Tensor:
@@ -152,11 +186,9 @@ class ToucanTTSInterface:
         text_arr = np.zeros((1, n_pad, phones.shape[1]), np.float32)
         text_arr[0, :n] = phones
         max_frames = n_pad * FRAMES_PER_PHONE
-        lang = (None if self.lang_id is None
-                else torch.tensor([[self.lang_id]], device=self.device))
         _, after, *_, lens = self.model.infer(
-            self._tensor(text_arr), torch.tensor([n], device=self.device), max_frames,
-            utterance_embedding=self._utt(1), lang_ids=lang,
+            self._tensor(text_arr), self._tensor([n], torch.int64), max_frames,
+            utterance_embedding=self._utt(1), lang_ids=self._lang([self.lang_id]),
             glow_noise=self._noise(1, max_frames))
         return after[:, :int(lens[0])]
 
@@ -173,18 +205,37 @@ class ToucanTTSInterface:
     # ----------------------------------------------------------- synthesis
 
     def _tensor(self, x, dtype=torch.float32):
-        return None if x is None else torch.as_tensor(np.asarray(x), dtype=dtype,
-                                                      device=self.device)
+        """A host array on the interface's device.  To the card it goes
+        through pinned memory without waiting for the device, so a caller
+        can enqueue a call while earlier ones still run."""
+        if x is None:
+            return None
+        t = torch.as_tensor(np.asarray(x), dtype=dtype)
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    def _lang(self, ids):
+        """(B, 1) language ids, or None where the model has no language
+        embedding."""
+        return None if self.lang_id is None else self._tensor([[i] for i in ids], torch.int64)
+
+    def _draw_noise(self, buf: torch.Tensor):
+        """Fill buf with glow noise, N(0, 0.8^2), from the interface's generator."""
+        torch.randn(buf.shape, generator=self.generator, out=buf)
+        buf.mul_(0.8)
 
     def _noise(self, b: int, max_frames: int) -> torch.Tensor:
-        return torch.randn((b, max_frames, self.config.mel_channels),
-                           generator=self.generator, device=self.device) * 0.8
+        buf = torch.empty((b, max_frames, self.config.mel_channels), device=self.device)
+        self._draw_noise(buf)
+        return buf
 
     @torch.inference_mode()
     def _e2e(self, text, text_lengths, max_frames: int, utt, lang, noise, knobs=(1.0,) * 4,
              durations=None, pitch=None, energy=None):
-        """Text -> mel -> wave on the device.  Tensors on ``self.device``;
-        knobs are (duration, pitch variance, energy variance, pause) scales.
+        """Text -> mel -> wave on the device, the step of an ``_e2e_cache``
+        bucket.  Tensors on ``self.device``; ``knobs`` the (duration, pitch
+        variance, energy variance, pause) scales, a (4,) tensor or floats.
         Returns (wave (B, 384*max_frames), after, durations, pitch, energy,
         mel_lengths)."""
         _, after, dur, pit, ene, lens = self.model.infer(
@@ -198,14 +249,70 @@ class ToucanTTSInterface:
         wave = self._vocoder_call(mel)[..., 0]
         return wave, after, dur, pit, ene, lens
 
+    def _e2e_bucket(self, max_frames: int, inputs: dict) -> Bucket:
+        """The bucket of these inputs (device tensors or None, named as
+        ``_e2e``'s arguments), made and, on the card, captured on first use.
+        Its key holds all that a graph fixes: batch size, phone bucket,
+        ``max_frames`` and which overrides were given."""
+        text = inputs["text"]
+        key = (text.shape[0], text.shape[1], max_frames,
+               *(inputs.get(k) is not None for k in ("durations", "pitch", "energy")))
+        if key not in self._e2e_cache:
+            specs = {k: None if v is None else (tuple(v.shape), v.dtype) for k, v in inputs.items()}
+            specs["noise"] = ((text.shape[0], max_frames, self.config.mel_channels), torch.float32)
+            self._e2e_cache[key] = self._bucket(
+                functools.partial(self._e2e, max_frames=max_frames), specs)
+        return self._e2e_cache[key]
+
+    def _run_e2e(self, max_frames: int, noise=None, **inputs):
+        """``_e2e`` through its bucket (eagerly where ``_eager`` is set).
+        ``inputs``: device tensors or None; ``noise`` a device tensor, or
+        None to draw it from the generator into the bucket's buffer.
+        Returns the device outputs without waiting for the device."""
+        if self._eager:
+            if noise is None:
+                noise = self._noise(inputs["text"].shape[0], max_frames)
+            return self._e2e(max_frames=max_frames, noise=noise, **inputs)
+        bucket = self._e2e_bucket(max_frames, inputs)
+        given = {k: v for k, v in inputs.items() if v is not None}
+        return bucket(noise=self._draw_noise if noise is None else noise, **given)
+
+    def precompile(self, phone_buckets=(PHONE_BUCKET, 4 * PHONE_BUCKET), batch_sizes=(1,),
+                   with_overrides=False):
+        """Make the text -> wave buckets of these phone buckets and batch
+        sizes (with ``with_overrides``: of calls that give durations, pitch
+        and energy) before any request, so that serving never pays a
+        warm-up and a capture on a live request.  The largest bucket comes
+        first: the smaller graphs then capture into the memory its capture
+        left free in the interface's pool."""
+        feats = self.config.input_features
+        for b, n_pad in sorted(itertools.product(batch_sizes, phone_buckets),
+                               key=lambda bn: -bn[0] * bn[1]):
+            inputs = dict(text=self._tensor(np.zeros((b, n_pad, feats))),
+                          text_lengths=self._tensor(np.full(b, n_pad), torch.int64),
+                          utt=self._utt(b), lang=self._lang([self.lang_id] * b),
+                          knobs=self._tensor(np.ones(4)))
+            if with_overrides:
+                inputs.update(durations=self._tensor(np.ones((b, n_pad)), torch.int32),
+                              pitch=self._tensor(np.zeros((b, n_pad, 1))),
+                              energy=self._tensor(np.zeros((b, n_pad, 1))))
+            self._e2e_bucket(n_pad * FRAMES_PER_PHONE, inputs)
+
     @f32_precision()
     @torch.inference_mode()
     def _vocode(self, mel: np.ndarray) -> np.ndarray:
-        """(L, 80) -> (L*384,) 24 kHz wave, padded to a 64-frame bucket."""
+        """(L, 80) -> (L*384,) 24 kHz wave, through a bucket of 64 frames."""
         frames = _round_up(len(mel), 64)
         mel_p = np.zeros((1, frames, mel.shape[1]), np.float32)
         mel_p[0, :len(mel)] = mel
-        wave = self._vocoder_call(self._tensor(mel_p))
+        mel_t = self._tensor(mel_p)
+        if self._eager:
+            wave = self._vocoder_call(mel_t)
+        else:
+            if frames not in self._vocoder_cache:
+                self._vocoder_cache[frames] = self._bucket(
+                    lambda mel: (self._vocoder_call(mel),), {"mel": (mel_p.shape, torch.float32)})
+            wave, = self._vocoder_cache[frames](mel=mel_t)
         return wave[0, :len(mel) * SAMPLES_PER_FRAME, 0].cpu().numpy()
 
     def _utt(self, b: int):
@@ -213,11 +320,15 @@ class ToucanTTSInterface:
             return None
         return self._tensor(np.tile(self.default_utterance_embedding[None], (b, 1)))
 
-    def _synthesize(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
-                    energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
-                    durations=None, pitch=None, energy=None, input_is_phones=False,
-                    glow_noise=None):
-        """One sentence through ``_e2e``; returns its outputs and phone count."""
+    @f32_precision()
+    def _dispatch_call(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
+                       energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
+                       durations=None, pitch=None, energy=None, input_is_phones=False,
+                       glow_noise=None):
+        """Enqueue one sentence's text -> wave and return its device outputs
+        (wave, after, durations, pitch, energy, mel_lengths) and its phone
+        count, without waiting for the device, so that a caller can enqueue
+        several sentences before it fetches the first (``read_to_file``)."""
         phones = self.text2phone.string_to_features(text, input_phonemes=input_is_phones)
         n = len(phones)
         n_pad = _round_up(n, PHONE_BUCKET)
@@ -237,21 +348,19 @@ class ToucanTTSInterface:
             out[0, :n] = x
             return self._tensor(out, dtype)
 
-        if glow_noise is None:
-            noise = self._noise(1, max_frames)
-        else:  # injected z (deterministic synthesis, parity tests)
+        noise = None
+        if glow_noise is not None:  # injected z (deterministic synthesis, parity tests)
             glow_noise = np.asarray(glow_noise, np.float32)
             z = np.zeros((1, max_frames, self.config.mel_channels), np.float32)
             z[0, :len(glow_noise)] = glow_noise[:max_frames]
             noise = self._tensor(z)
-        lang = (None if self.lang_id is None
-                else torch.tensor([[self.lang_id]], device=self.device))
         knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
                  pause_duration_scaling_factor)
-        outs = self._e2e(self._tensor(text_arr), torch.tensor([n], device=self.device),
-                         max_frames, self._utt(1), lang, noise, knobs,
-                         durations=pad_override(durations, torch.int32),
-                         pitch=pad_override(pitch), energy=pad_override(energy))
+        outs = self._run_e2e(max_frames, noise, text=self._tensor(text_arr),
+                             text_lengths=self._tensor([n], torch.int64), utt=self._utt(1),
+                             lang=self._lang([self.lang_id]), knobs=self._tensor(knobs),
+                             durations=pad_override(durations, torch.int32),
+                             pitch=pad_override(pitch), energy=pad_override(energy))
         return outs, n
 
     @f32_precision()
@@ -259,7 +368,7 @@ class ToucanTTSInterface:
                  energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
                  durations=None, pitch=None, energy=None, input_is_phones=False,
                  return_duration_pitch_energy=False, glow_noise=None):
-        (wave, _, dur, pit, ene, lens), n = self._synthesize(
+        (wave, _, dur, pit, ene, lens), n = self._dispatch_call(
             text, duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
             pause_duration_scaling_factor, durations, pitch, energy, input_is_phones,
             glow_noise)
@@ -294,15 +403,13 @@ class ToucanTTSInterface:
             utt = self._utt(b)
         else:
             utt = self._tensor(np.asarray(utterance_embeddings, np.float32).reshape(b, -1))
-        lang = None
-        if self.config.lang_embs is not None:
-            ids = [self.lang_id if lg is None else language_id(lg) for lg in langs]
-            lang = torch.tensor([[i] for i in ids], device=self.device)
         knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
                  pause_duration_scaling_factor)
-        waves, _, _, _, _, lens = self._e2e(
-            self._tensor(text_arr), self._tensor(lengths, torch.int64), max_frames, utt, lang,
-            self._noise(b, max_frames), knobs)
+        waves, _, _, _, _, lens = self._run_e2e(
+            max_frames, text=self._tensor(text_arr), text_lengths=self._tensor(lengths, torch.int64),
+            utt=utt, lang=self._lang([self.lang_id if lg is None else language_id(lg)
+                                      for lg in langs]),
+            knobs=self._tensor(knobs))
         if return_pcm16:
             waves = torch.round(waves.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
         waves, lens = waves.cpu().numpy(), lens.cpu().numpy()
@@ -317,20 +424,26 @@ class ToucanTTSInterface:
                      increased_compatibility_mode=False, input_is_phones=False):
         """Synthesize each text, join them with silence, write a 24 kHz PCM16
         wav (``increased_compatibility_mode``: each sample twice, 48 kHz).
+        Every sentence is enqueued before the first is fetched, so the
+        host's work on one overlaps the device's on the ones before it.
         Returns the samples (int16 in the compatibility mode)."""
-        silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
-        pieces = [silence]
+        inflight = []
         for text, durations, pitch, energy in itertools.zip_longest(
                 text_list, dur_list or [], pitch_list or [], energy_list or []):
             if not text or not text.strip():
                 continue
             if not silent:
                 print(f"Now synthesizing: {text}")
-            pieces += [self(text, duration_scaling_factor=duration_scaling_factor,
-                            pitch_variance_scale=pitch_variance_scale,
-                            energy_variance_scale=energy_variance_scale,
-                            durations=durations, pitch=pitch, energy=energy,
-                            input_is_phones=input_is_phones), silence]
+            outs, _ = self._dispatch_call(
+                text, duration_scaling_factor=duration_scaling_factor,
+                pitch_variance_scale=pitch_variance_scale,
+                energy_variance_scale=energy_variance_scale, durations=durations, pitch=pitch,
+                energy=energy, input_is_phones=input_is_phones)
+            inflight.append((outs[0], outs[5]))
+        silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
+        pieces = [silence]
+        for wave, lens in inflight:
+            pieces += [wave[0, :int(lens[0]) * SAMPLES_PER_FRAME].cpu().numpy(), silence]
         wav, sr = _compatible(np.concatenate(pieces), increased_compatibility_mode)
         write_wav(file_location, wav, sr)
         return wav

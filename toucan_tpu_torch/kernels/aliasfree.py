@@ -216,7 +216,7 @@ def alias_free_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -
                  ctypes.addressof(_TAPS), b, t, c, geo.seg_chunks, geo.blocks, int(geo.vector),
                  stream)
     build.check(lib, err, "alias_free_snake")
-    alias_free_snake.launches += 1
+    build.count_launch(alias_free_snake)
     return out.transpose(1, 2)
 
 

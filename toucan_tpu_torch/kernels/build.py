@@ -6,6 +6,13 @@ file name that carries a hash of the source and flags, so an edited source
 is rebuilt and an unchanged one is not.  ``build`` starts one nvcc per
 source, all together, and keeps each compiler's ``-Xptxas -v`` report
 (registers, shared memory, spills) in ``build_logs``.
+
+Each wrapper counts its kernel's launches in its ``.launches`` through
+``count_launch``: a launch made while the current stream captures a CUDA
+graph runs only when the graph is replayed, so it goes to the open
+``CaptureTally``, which adds it to the counts at each replay.  A cache whose
+tensors a graph reads by address passes them through ``hold``, so that the
+graph's tally keeps them alive after the cache drops them.
 """
 
 from __future__ import annotations
@@ -27,6 +34,60 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 build_logs: dict = {}
 _libs: dict = {}
+_tally = None  # the CaptureTally open around the capture in progress
+
+
+class CaptureTally:
+    """What one CUDA graph's capture recorded: its kernel launches
+    {wrapper: count}, and the cached tensors it reads by address
+    (``hold``), kept alive as long as the tally.
+
+    Open it (``with``) around the capture; ``replayed()`` after each replay
+    adds the launches to the wrappers' ``.launches``.
+    """
+
+    def __init__(self):
+        self.counts: dict = {}
+        self.held: list = []
+
+    def __enter__(self):
+        global _tally
+        if _tally is not None:
+            raise RuntimeError("a capture tally is already open")
+        _tally = self
+        return self
+
+    def __exit__(self, *exc):
+        global _tally
+        _tally = None
+
+    def replayed(self):
+        for wrapper, n in self.counts.items():
+            wrapper.launches += n
+
+
+def capturing() -> bool:
+    """Whether the current stream is capturing a CUDA graph."""
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def count_launch(wrapper):
+    """Count one launch of ``wrapper``'s kernel in ``wrapper.launches``, or,
+    while the current stream is capturing, in the open ``CaptureTally`` (a
+    capture with none open, such as a timing loop's, counts nowhere)."""
+    if not capturing():
+        wrapper.launches += 1
+    elif _tally is not None:
+        _tally.counts[wrapper] = _tally.counts.get(wrapper, 0) + 1
+
+
+def hold(t: torch.Tensor) -> torch.Tensor:
+    """Return ``t``, a tensor from a cache that may later drop it; while a
+    capture is open, its graph reads ``t`` by address, so the capture's
+    tally keeps ``t`` alive as long as the graph."""
+    if _tally is not None and capturing():
+        _tally.held.append(t)
+    return t
 
 
 def nvcc() -> str:

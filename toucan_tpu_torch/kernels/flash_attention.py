@@ -106,7 +106,7 @@ def flash_rel_attention(q_u, q_v, k, v, p, lengths):
                  p.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, h, t, q_u.shape[-1],
                  1.0 / math.sqrt(d), stream)
     build.check(lib, err, "flash_rel_attention")
-    flash_rel_attention.launches += 1
+    build.count_launch(flash_rel_attention)
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 

@@ -379,7 +379,6 @@ def tiling_for(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE,
                         _clusters_in_flight(x.device, st.mode), tuple(clusters), tile)
 
 
-@functools.lru_cache(maxsize=16)
 def widened(st: ImcolStage, c: int) -> ImcolStage:
     """``st`` with zero channels added up to ``c``: zero weights into and out
     of them, zero bias and unit scale, so their stream stays zero and the
@@ -390,6 +389,17 @@ def widened(st: ImcolStage, c: int) -> ImcolStage:
     return dataclasses.replace(st, w=torch.cat(ws).contiguous(), channels=c,
                                scale=F.pad(st.scale, (0, pad), value=1.0).contiguous(),
                                bias=F.pad(st.bias, (0, pad)).contiguous())
+
+
+def _widened(st: ImcolStage) -> ImcolStage:
+    """``widened(st, C rounded up to 4)``, made once per ImcolStage and kept
+    on it: a captured graph reads the widened weights by address for as
+    long as it reads ``st``'s own."""
+    cached = st.__dict__.get("_widened")
+    if cached is None or cached.w.device != st.w.device:
+        cached = widened(st, st.channels + (-st.channels) % 4)
+        object.__setattr__(st, "_widened", cached)
+    return cached
 
 
 def _check(x: torch.Tensor, st: ImcolStage, fold: int):
@@ -429,8 +439,8 @@ def imcol_stage(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE) ->
     _check(x, st, fold)
     c = st.channels
     if c % 4:
-        wide = c + (-c) % 4
-        return imcol_stage(F.pad(x, (0, wide - c)), widened(st, wide), fold,
+        wide = _widened(st)
+        return imcol_stage(F.pad(x, (0, wide.channels - c)), wide, fold,
                            tile)[..., :c].contiguous()
     ks, ds = st.kernel_sizes, st.dilations
     b, t, _ = x.shape
@@ -450,7 +460,7 @@ def imcol_stage(x: torch.Tensor, st: ImcolStage, fold: int, tile: int = TILE) ->
                  int(tl.flat), tl.wpr, tl.wslots, tl.cluster, tl.per_sm, tl.grid, tl.smem,
                  st.slope, stream)
     build.check(lib, err, "imcol_stage")
-    imcol_stage.launches += 1
+    build.count_launch(imcol_stage)
     return out
 
 

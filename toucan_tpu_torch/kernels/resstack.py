@@ -289,7 +289,7 @@ def hifigan_stage(x: torch.Tensor, sw: StageWeights) -> torch.Tensor:
                  scratch.data_ptr(), b, t, c, ks[0], ks[1], ks[2], ds[0], ds[1], ds[2],
                  tl.tile, tl.halo, tl.cluster, tl.grid, sw.slope, stream)
     build.check(lib, err, "hifigan_stage")
-    hifigan_stage.launches += 1
+    build.count_launch(hifigan_stage)
     return out
 
 

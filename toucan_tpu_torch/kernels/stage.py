@@ -425,7 +425,7 @@ def quantized_stage(x: torch.Tensor, sw, mode: Optional[str] = None,
                  b, t, c, ks[0], ks[1], ks[2], ds[0], ds[1], ds[2], tl.tile, tl.halo,
                  tl.n_tiles, tl.cluster, tl.grid, tl.smem, qs.slope, stream)
     build.check(lib, err, "quantized_stage")
-    quantized_stage.launches += 1
+    build.count_launch(quantized_stage)
     return out
 
 

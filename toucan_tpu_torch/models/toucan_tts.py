@@ -87,6 +87,8 @@ class ToucanTTS(nn.Module):
         """text (B, T, 62); text_lengths (B,); lang_ids (B, 1); utterance
         embedding (B, E); gold_* override the predictions ((B, T) durations,
         (B, T, 1) pitch and energy).  ``glow_noise`` is (B, max_frames, 80).
+        The four scales are floats or 0-d f32 tensors on the model's device:
+        only the device reads a tensor, so a captured graph takes any value.
 
         Returns (before_outs, after_outs, durations, pitch, energy,
         mel_lengths), after_outs (B, max_frames, 80); frames past mel_lengths
@@ -154,11 +156,12 @@ class ToucanTTS(nn.Module):
 
 def _scale_variance(seq, scale):
     """Widen/narrow a prosody curve around its nonzero mean (reference
-    ``_scale_variance``, InferenceToucanTTS.py:333-343); scale 1 passes
-    the curve through untouched."""
-    if float(scale) == 1.0:
-        return seq
+    ``_scale_variance``, InferenceToucanTTS.py:333-343); ``scale`` a float
+    or a 0-d tensor.  Scale 1 passes the curve through untouched (no clamp),
+    chosen on the device as the JAX package's ``where`` does."""
+    scale = torch.as_tensor(scale, dtype=seq.dtype, device=seq.device)
     nonzero = seq != 0.0
     denom = nonzero.sum(dim=(1, 2), keepdim=True).clamp(min=1)
     avg = torch.where(nonzero, seq, torch.zeros_like(seq)).sum(dim=(1, 2), keepdim=True) / denom
-    return torch.clamp((seq - avg) * scale + avg, min=0.0)
+    scaled = torch.clamp((seq - avg) * scale + avg, min=0.0)
+    return torch.where(scale == 1.0, seq, scaled)

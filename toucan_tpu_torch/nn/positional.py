@@ -1,13 +1,21 @@
 """Relative positional encodings (Transformer-XL style).
 
 For a length-T input the table covers relative offsets T-1 ... -(T-1)
-(reference ``Layers/PositionalEncoding.py:68-131``).
+(reference ``Layers/PositionalEncoding.py:68-131``).  The conformers take
+each table from a cache per (length, width, device): a table made on the
+host and copied to the card is a host-to-device copy, which a CUDA graph
+cannot capture, so the warm-up before a capture fills the cache.  A graph
+reads its tables by address, so a capture holds them (``build.hold``) for
+as long as its graph lives, whatever the cache evicts.
 """
 
+import functools
 import math
 
 import numpy as np
 import torch
+
+from toucan_tpu_torch.kernels import build
 
 
 def relative_position_encoding(length: int, d_model: int, device=None) -> torch.Tensor:
@@ -22,6 +30,13 @@ def relative_position_encoding(length: int, d_model: int, device=None) -> torch.
     return torch.from_numpy(pe[None]).to(device)
 
 
+@functools.lru_cache(maxsize=32)
+def _cached_table(length: int, d_model: int, device: torch.device) -> torch.Tensor:
+    with torch.inference_mode(False):  # a normal tensor, usable outside inference mode too
+        return relative_position_encoding(length, d_model, device)
+
+
 def rel_positional_encoding(x: torch.Tensor, d_model: int):
-    """Scale the (B, T, D) input and return it with its position table."""
-    return x * math.sqrt(d_model), relative_position_encoding(x.shape[-2], d_model, x.device)
+    """Scale the (B, T, D) input and return it with its (cached, shared,
+    read-only) position table."""
+    return x * math.sqrt(d_model), build.hold(_cached_table(x.shape[-2], d_model, x.device))
