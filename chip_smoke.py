@@ -99,7 +99,30 @@ Phases, each reported on its own lines:
    PyTorch's default ``cudnn.allow_tf32 = True`` set by the caller, which
    must give the durations and, within 1e-5, the mel (the wave, the
    embedding) of the same call with TF32 off, and leave the flags as they
-   were (each of the two calls captures its own graph).
+   were (each of the two calls captures its own graph);
+10. clone (after the HiFiGAN path's ref phase, on its interface): a
+   full-size ``Aligner()`` with seeded weights clones a 7.2 s reference at
+   24 kHz (the model's own wave of ``LONG_TEXT`` at 5 frames a phone):
+   ``clone_utterance`` (5-step fine-tune on the card, MAS; K1 12 and K2 4
+   a synthesis; once more under the profiler), ``extract_prosody`` with
+   MAS and with dijkstra (no kernel launch), the native F0 path asserted,
+   each part on the host clock (audio front end, aligner forward, 5
+   fine-tune steps, MAS, F0, energy, synthesis), and the card against the
+   CPU: the fine-tune in float64 (within 1e-5), the reference's mel (in
+   power, 1e-4 of its peak), and on the card's fine-tuned aligner the
+   logits on one mel (1e-4); for MAS and dijkstra the
+   alignments (durations) equal on float64 logits of one mel, and in
+   float32, each side on its own mel, equal or a near-tie whose margin the
+   logits' difference explains (each path optimal under its own logits;
+   the margin printed), pitch and energy on the card's path (1e-4); and
+   the cloned synthesis on the same noise (``TOL_REF``);
+11. controllable: ``GanWrapper`` at JAX's defaults (``ResNetG()``, 1100
+   latents, 50 000 PCA samples; seeded weights) with its set-up time split
+   into the generator on the card, the copy to the host and the host's SVD
+   and least squares, ``modify_embed`` card against CPU on the same bank
+   and basis (1e-5), and ``ControllableInterface.read`` without a plot
+   (the card's machine has no matplotlib): 48 kHz, each sample twice, K1
+   12 and K2 4.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -107,6 +130,7 @@ nonzero.  TF32 is off for matmuls and cuDNN, for the plain versions; the
 port's entry points pin f32 themselves.
 """
 
+import copy
 import dataclasses
 import functools
 import gc
@@ -122,7 +146,11 @@ import weakref
 import numpy as np
 import torch
 
+from toucan_tpu_torch import native
+from toucan_tpu_torch.data.extraction import compute_frame_energy
 from toucan_tpu_torch.frontend.text import TextFrontend
+from toucan_tpu_torch.infer.cloner import UtteranceCloner
+from toucan_tpu_torch.infer.controllable import ControllableInterface
 from toucan_tpu_torch.infer.interface import (FRAMES_PER_PHONE, PHONE_BUCKET,
                                               SENTENCE_JOIN_SILENCE, ToucanTTSInterface,
                                               _round_up, write_wav)
@@ -141,6 +169,8 @@ from toucan_tpu_torch.kernels.resstack import (hifigan_stage, hifigan_stage_plai
 from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_stage,
                                             quantized_stage, quantized_stage_plain)
 from toucan_tpu_torch.load import GLOW_WEIGHT_NORM, interface_from_torch, split_weight_norm
+from toucan_tpu_torch.models.aligner import Aligner, alignment_from_logits, path_score
+from toucan_tpu_torch.models.embedding_gan import GanWrapper, ResNetG
 from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
@@ -1360,15 +1390,15 @@ def phase_graphs(iface, per_call, label, launches):
         for k, v in times.items()))
 
 
-def report_profile(prof, wall_us, label):
-    """Device time by kernel and the device's busy share of one __call__."""
+def report_profile(prof, wall_us, label, what="one __call__"):
+    """Device time by kernel and the device's busy share of ``what``."""
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kernels)
     if not kernels:
         log("profile", "no device time in the trace: device breakdown not measured")
         return None
-    log("profile", f"{label}, one __call__: wall {wall_us / 1e3:.2f} ms, "
+    log("profile", f"{label}, {what}: wall {wall_us / 1e3:.2f} ms, "
                    f"device busy {busy / 1e3:.2f} ms "
                    f"({100 * busy / wall_us:.1f}%), idle {100 - 100 * busy / wall_us:.1f}%")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
@@ -1458,6 +1488,274 @@ def check_tf32_default(label, fn, reset=lambda: None):
         raise AssertionError(f"{label} depends on the caller's TF32 setting")
 
 
+CLONE_FRAMES_PER_PHONE = 5  # the reference recording: LONG_TEXT at 5 frames a phone, 24 kHz
+# card against CPU in the cloning phase: pitch and energy are token
+# averages normalized to a nonzero mean of 1 (the energy's STFT runs on each
+# device; F0 is the same host code on both); the aligner's logits on equal
+# weights run cuDNN's convs and LSTM against the CPU's in other orders
+TOL_PROSODY = 1e-4
+TOL_ALIGNER_LOGITS = 1e-4
+# the fine-tune (5 SGD steps) in float64, card against CPU: in float32 the
+# two runs can part at a ReLU input near zero, which BatchNorm over
+# near-dead channels magnifies (tests/test_torch_clone.py::fine_tuned)
+TOL_FINE_TUNE_F64 = 1e-5
+# the reference's mel, card against CPU, in power relative to its peak:
+# float32 rounding of a 1024-point STFT, bounded by n_fft * 2**-24 = 6.1e-5
+# of the frame's energy (the log10 that the aligner reads magnifies it in
+# the quietest bins, by up to ~0.2)
+TOL_MEL_POWER = 1e-4
+# a path's score (a float64 sum of ~450 terms of order 1) in two orders:
+# the pathfinding's and ``path_score``'s
+TOL_PATH_SUM = 1e-9
+# modify_embed, card against CPU on the same bank and basis
+TOL_GAN = 1e-5
+GAN_SLIDERS = ([0.0] * 6, [3.0, 0, 0, 0, 0, 0], [0.5, -1.0, 2.0, 0.0, -0.3, 1.5])
+
+
+def timed(fn):
+    """(fn(), host seconds to a synchronize)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def seeded_aligner_state(seed):
+    """A full-size aligner's state dict (PyTorch's init, seeded), with
+    BatchNorm statistics and affine terms away from their init values."""
+    torch.manual_seed(seed)
+    aligner = Aligner()
+    with torch.no_grad():
+        for name, t in aligner.state_dict().items():
+            if name.endswith("running_mean"):
+                t.copy_(0.1 * torch.randn_like(t))
+            elif name.endswith("running_var"):
+                t.uniform_(0.5, 1.5)
+            elif ".bnorm." in name and t.dim() == 1 and t.is_floating_point():
+                t.copy_((1.0 if name.endswith("weight") else 0.0) + 0.1 * torch.randn_like(t))
+    return aligner.state_dict()
+
+
+def fine_tune_f64(cloner, mel, ids):
+    """The cloner's 5-step fine-tune of a float64 copy of its aligner, on
+    ``mel`` (T, 80); the tuned aligner's logits (T, 145) on the host."""
+    cl = copy.copy(cloner)
+    cl.aligner = copy.deepcopy(cloner.aligner).double()
+    mel = mel.double().to(cloner.device)
+    return cl.logits(cl._fine_tune_aligner(mel, ids), mel)
+
+
+def check_alignments(method, preds, aligns):
+    """The card's alignment against the CPU's, each from its own logits
+    (``preds``: the transcript's token columns): equal, or a near-tie that
+    the two sides' logits explain.  Where the paths part, each must score
+    at least as high as the other under its own side's logits (each
+    pathfinding found its optimum), and its lead there (the decision's
+    margin) can be no more than the two sides' logits move the two paths'
+    scores.  Returns a line that says which it was."""
+    if np.array_equal(aligns[0], aligns[1]):
+        return "paths equal"
+    score = [[path_score(p, a, method) for a in aligns] for p in preds]
+    margins = (score[0][0] - score[0][1], score[1][1] - score[1][0])
+    moved = abs(score[0][0] - score[1][0]) + abs(score[0][1] - score[1][1])
+    cols = [a.argmax(1) for a in aligns]
+    line = (f"paths part on {int((cols[0] != cols[1]).sum())} of {len(cols[0])} frames: a "
+            f"near-tie, the margin of the card's path under its logits {margins[0]:.3e}, of "
+            f"the CPU's under its own {margins[1]:.3e}, against {moved:.3e} that the logits' "
+            f"difference moves the two paths' scores")
+    if not all(-TOL_PATH_SUM <= m <= moved + TOL_PATH_SUM for m in margins):
+        raise AssertionError(f"{method}: the alignments part by more than a near-tie: {line}")
+    return line
+
+
+def phase_clone(iface, cpu, launches, card):
+    """Prosody cloning at full width (``Aligner()``: conv 512, BiLSTM 512,
+    145 classes; seeded weights) on the HiFiGAN interface: ``clone_utterance``
+    (5-step fine-tune, MAS) with its launches counted, ``extract_prosody``
+    with MAS and with dijkstra, each part on the host clock, and the card
+    against the CPU: the fine-tune in float64; on the same (the card's
+    fine-tuned) aligner the logits, the alignments (equal in float64; in
+    float32 equal or a near-tie, ``check_alignments``), and pitch and energy
+    on the card's path; and the synthesis of the cloned prosody on the same
+    noise."""
+    n = len(iface.text2phone.string_to_features(LONG_TEXT))
+    ref = iface(LONG_TEXT, durations=np.full(n, CLONE_FRAMES_PER_PHONE))
+    aligner_sd = seeded_aligner_state(SEED + 4)
+    cloner, cpu_cloner = UtteranceCloner(iface, aligner_sd), UtteranceCloner(cpu, aligner_sd)
+    log("clone", f"reference: {len(ref) / 24000:.3f} s at 24 kHz ({n} phones at "
+                 f"{CLONE_FRAMES_PER_PHONE} frames each); transcript of {n} phones")
+    calls = dict(native.f0_calls)
+
+    def clone(name, warm):
+        return drive(f"clone_utterance ({name}; 5-step fine-tune on the card, MAS)",
+                     lambda: cloner.clone_utterance(ref, LONG_TEXT, sr=24000), iface,
+                     dict(k1=12, k2=4), launches, frame=1, warm=warm)
+    clone("first", None)
+    wave = clone("steady", 0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, sec = timed(lambda: clone("steady, profiled", 0))
+    report_profile(prof, sec * 1e6, "clone", "one steady clone_utterance")
+    for method in ("MAS", "dijkstra"):
+        dur, *_ = drive(f"extract_prosody ({method}, 5-step fine-tune on the card)",
+                        lambda: cloner.extract_prosody(LONG_TEXT, ref, sr=24000,
+                                                       pathfinding=method),
+                        iface, {}, launches, waves_of=lambda out: [], bucketed=False)
+        log("clone", f"extract_prosody ({method}): {len(dur)} phones, {int(dur.sum())} frames, "
+                     f"{int((dur > 0).sum())} phones with frames")
+    ran = {k: native.f0_calls[k] - calls[k] for k in calls}
+    log("clone", f"F0 path taken: {ran} (native: toucan_tpu_torch/native/f0.cpp through g++)")
+    if not (ran["native"] > 0 and ran["numpy"] == 0):
+        raise AssertionError(f"the F0 tracker did not take the native path: {ran}")
+
+    # each part of extract_prosody and the synthesis on the host clock
+    parts = {}
+    r, parts["audio front end (loudness, resample, trim, G2P, mel)"] = timed(
+        lambda: cloner.prepare(LONG_TEXT, ref, sr=24000))
+    logits, parts["aligner forward"] = timed(lambda: cloner.logits(cloner.aligner, r.mel))
+    tuned, parts["5 fine-tune steps"] = timed(lambda: cloner._fine_tune_aligner(r.mel,
+                                                                              r.token_ids))
+    logits, _ = timed(lambda: cloner.logits(tuned, r.mel))
+    alignment, parts["MAS"] = timed(lambda: alignment_from_logits(logits, r.token_ids))
+    _, parts["F0 (native)"] = timed(lambda: native.estimate_f0(r.wave))
+    _, parts["energy (STFT on the card)"] = timed(
+        lambda: compute_frame_energy(r.wave, device=iface.device))
+    dur, pitch, energy, *_ = cloner.extract_prosody(LONG_TEXT, ref, sr=24000,
+                                                    on_line_fine_tune=False)
+    _, parts["synthesis (cloned durations, pitch, energy)"] = timed(
+        lambda: iface(LONG_TEXT, durations=dur, pitch=pitch, energy=energy))
+    log("clone", f"{len(r.mel)} mel frames, {len(r.token_ids)} CTC labels; parts, host clock "
+                 f"({card}): " + "; ".join(f"{k} {1e3 * v:.2f} ms" for k, v in parts.items()))
+
+    # card against CPU
+    rng = np.random.RandomState(SEED + 5)
+    mel = torch.tensor(rng.randn(128, 80) - 4, dtype=torch.float32)
+    ids = list(rng.randint(0, 144, 24))
+    got = fine_tune_f64(cloner, mel, ids)
+    want = fine_tune_f64(cpu_cloner, mel, ids)
+    err = float(np.abs(got - want).max())
+    log("clone", f"fine-tune in float64 (128 frames, 24 labels), card against CPU: logits "
+                 f"max_abs_err={err:.3e} (tolerance {TOL_FINE_TUNE_F64}, peak "
+                 f"{np.abs(want).max():.3e})")
+    if not err <= TOL_FINE_TUNE_F64:
+        raise AssertionError("the fine-tune on the card disagrees with the CPU's")
+    saved = cloner.aligner, cpu_cloner.aligner
+    cloner.aligner = tuned
+    cpu_cloner.aligner = copy.deepcopy(tuned).cpu()
+    try:
+        err = float(np.abs(cloner.logits(tuned, r.mel)
+                           - cpu_cloner.logits(cpu_cloner.aligner, r.mel.cpu())).max())
+        log("clone", f"the card's fine-tuned aligner, card against CPU: logits "
+                     f"max_abs_err={err:.3e} (tolerance {TOL_ALIGNER_LOGITS})")
+        if not err <= TOL_ALIGNER_LOGITS:
+            raise AssertionError("the fine-tuned aligner's logits differ between card and CPU")
+        # extract_prosody's steps (prepare, logits, pathfinding, prosody) on
+        # each side: the host's front end gives both the same wave and phones
+        sides = (cloner, cpu_cloner)
+        refs = [c.prepare(LONG_TEXT, ref, sr=24000) for c in sides]
+        if not (np.array_equal(refs[0].wave, refs[1].wave) and np.array_equal(
+                refs[0].text, refs[1].text) and refs[0][3:] == refs[1][3:]):
+            raise AssertionError("the host's front end differs between the two sides")
+        mels = [r.mel.double().cpu().numpy() for r in refs]
+        err = float(np.abs(10.0 ** mels[0] - 10.0 ** mels[1]).max() / (10.0 ** mels[1]).max())
+        log("clone", f"the mel, card against CPU: in power max_abs_err={err:.3e} of the peak "
+                     f"(tolerance {TOL_MEL_POWER}); in log10 {np.abs(mels[0] - mels[1]).max():.3e}"
+                     f" (the log magnifies the rounding of the quietest bins)")
+        if not err <= TOL_MEL_POWER:
+            raise AssertionError("the reference's mel differs between card and CPU")
+        ids = refs[0].token_ids
+        logits = [c.logits(c.aligner, r.mel) for c, r in zip(sides, refs)]
+        log("clone", f"the fine-tuned aligner, each side on its own mel, card against CPU: "
+                     f"logits max_abs_err={np.abs(logits[0] - logits[1]).max():.3e} (the mel's "
+                     f"log10 difference carried through; on one mel above)")
+        # in float64 on the card's mel the logits agree to ~1e-14, far inside
+        # any decision's margin: the alignments must be equal
+        mel64 = refs[0].mel.double()
+        logits64 = [c.logits(copy.deepcopy(c.aligner).double(), mel64.to(c.device))
+                    for c in sides]
+        log("clone", f"the same in float64 on the card's mel: logits max_abs_err="
+                     f"{float(np.abs(logits64[0] - logits64[1]).max()):.3e}")
+        for method in ("MAS", "dijkstra"):
+            aligns = [alignment_from_logits(lg, ids, method) for lg in logits64]
+            if not np.array_equal(*aligns):
+                raise AssertionError(f"{method} on float64 logits differs between card and CPU")
+            aligns = [alignment_from_logits(lg, ids, method) for lg in logits]
+            tie = check_alignments(method, [lg[:, ids] for lg in logits], aligns)
+            # the prosody of the card's path on each side
+            outs = [c.prosody(r, aligns[0]) for c, r in zip(sides, refs)]
+            same = np.array_equal(outs[0][0], outs[1][0]) and outs[0][3:] == outs[1][3:]
+            errs = [float(np.abs(a - b).max()) for a, b in zip(outs[0][1:3], outs[1][1:3])]
+            if not np.array_equal(*aligns):
+                parted = outs[0][0] != cloner.prosody(refs[0], aligns[1])[0]
+                tie += f" ({int(parted.sum())} phones' durations part)"
+            log("clone", f"extract_prosody ({method}) on the fine-tuned aligner, card against "
+                         f"CPU: in float64 on one mel the paths are equal; in float32 each on "
+                         f"its own mel, {tie}; on the card's "
+                         f"path durations and silences {'equal' if same else 'DIFFER'}, pitch "
+                         f"max_abs_err={errs[0]:.3e}, energy {errs[1]:.3e} (tolerance "
+                         f"{TOL_PROSODY})")
+            if not (same and max(errs) <= TOL_PROSODY):
+                raise AssertionError(f"extract_prosody ({method}) differs between card and CPU")
+        dur, pitch, energy = outs[0][:3]
+    finally:
+        cloner.aligner, cpu_cloner.aligner = saved
+    z = (0.8 * rng.randn(int(dur.sum()) + 66, 80)).astype(np.float32)
+    kw = dict(durations=dur, pitch=pitch, energy=energy, glow_noise=z)
+    w_card, w_cpu = iface(LONG_TEXT, **kw), cpu(LONG_TEXT, **kw)
+    err = float(np.abs(w_card - w_cpu).max()) if w_card.shape == w_cpu.shape else float("inf")
+    log("clone", f"synthesis of the cloned prosody ({len(w_card)} samples), card against CPU on "
+                 f"the same noise: max_abs_err={err:.3e} (tolerance {TOL_REF})")
+    if not err <= TOL_REF:
+        raise AssertionError("the cloned synthesis differs between card and CPU")
+    return wave
+
+
+def phase_controllable(iface, launches, card):
+    """The embedding GAN at JAX's defaults (``ResNetG()``, 1100 latents,
+    50 000 PCA samples; seeded weights) on the card: the set-up's time,
+    ``modify_embed`` card against CPU on the same bank and basis, and
+    ``ControllableInterface.read`` (no plot: the card's machine has no
+    matplotlib) with its launches counted."""
+    torch.manual_seed(SEED + 6)
+    gan_sd = ResNetG().state_dict()
+    wrapper, sec = timed(lambda: GanWrapper(gan_sd, seed=SEED))
+    z = torch.randn((50000, wrapper.generator.z_dim), device=iface.device)
+    inter, gen_s = timed(lambda: wrapper.intermediate(z))
+    _, copy_s = timed(lambda: (inter.cpu().numpy(), z.cpu().numpy()))
+    log("controllable", f"GanWrapper set-up on the card (1100 latents, 50000 PCA samples in "
+                        f"batches of 5000, SVD and least squares on the host): {1e3 * sec:.1f} ms; "
+                        f"again on 50000 latents, the generator on the card {1e3 * gen_s:.1f} ms "
+                        f"and the copy to the host {1e3 * copy_s:.1f} ms, so the host's SVD and "
+                        f"least squares take about {1e3 * (sec - gen_s - copy_s):.1f} ms ({card})")
+    del z, inter
+    cpu = GanWrapper(gan_sd, device="cpu", state=wrapper.state())
+    for seed in (0, 7):
+        wrapper.set_latent(seed)
+        cpu.set_latent(seed)
+        for sliders in GAN_SLIDERS:
+            got, want = (w.modify_embed(np.asarray(sliders, np.float32)) for w in (wrapper, cpu))
+            err = float(np.abs(got - want).max())
+            log("controllable", f"modify_embed(latent {seed}, sliders {sliders}), card against "
+                                f"CPU: max_abs_err={err:.3e} (tolerance {TOL_GAN})")
+            if not (got.shape == (64,) and err <= TOL_GAN):
+                raise AssertionError("modify_embed differs between card and CPU")
+    ci, speaker = ControllableInterface(iface, wrapper), iface.default_utterance_embedding
+    text = BATCH_TEXTS[0]
+    for name, warm in (("first", None), ("steady", 0)):
+        sr, wave = drive(f"ControllableInterface.read ({name})",
+                         lambda: ci.read(text, voice_seed=3, emb_slider_1=1.0, emb_slider_4=-0.5),
+                         iface, dict(k1=12, k2=4), launches, waves_of=lambda out: [out[1]],
+                         frame=768, warm=warm)
+    plain = iface(text)
+    log("controllable", f"read: {sr} Hz, {len(wave)} samples against the 24 kHz call's "
+                        f"{len(plain)}")
+    if not (sr == 48000 and len(wave) == 2 * len(plain)
+            and np.array_equal(wave[::2], wave[1::2])):
+        raise AssertionError("read did not return the call's wave doubled to 48 kHz")
+    iface.set_utterance_embedding(embedding=speaker)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -1502,9 +1800,12 @@ def main():
     iface = ToucanTTSInterface(tts_sd, voc_sd, seed=SEED)
     ref_wave = phase_main_hifigan(iface, launches)
     phase_graphs(iface, dict(k1=12, k2=4), "hifigan", launches)
-    phase_ref("hifigan", iface, ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED),
-              TOL_REF)
+    cpu = ToucanTTSInterface(tts_sd, voc_sd, device="cpu", seed=SEED)
+    phase_ref("hifigan", iface, cpu, TOL_REF)
     phase_tf32_default(iface)
+    phase_clone(iface, cpu, launches, smi)
+    phase_controllable(iface, launches, smi)
+    del cpu
     big = ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan", seed=SEED)
     phase_main(big, launches, dict(k1=12, k5=K5_LAUNCHES), "bigvgan")
     phase_graphs(big, dict(k1=12, k5=K5_LAUNCHES), "bigvgan", launches)

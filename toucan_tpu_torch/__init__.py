@@ -4,14 +4,19 @@ The JAX package ``toucan_tpu`` beside it is the unchanged reference.  This
 package mirrors its layout and imports neither JAX nor anything of
 ``toucan_tpu``:
 
-  frontend   text -> articulatory features (host Python, copied verbatim)
+  frontend   text -> articulatory features (host Python, copied verbatim),
+             audio front end, the numpy F0 tracker
+  native     host C++ through ctypes (the F0 tracker)
+  data       prosody extraction from an alignment (durations, pitch, energy)
   nn         PyTorch modules (conformer, predictors, glow, ...)
   kernels    wrappers of the hand-written CUDA kernels, each with its plain
              PyTorch version and a launch counter
   csrc       the CUDA C++ sources (built with nvcc at first use)
-  models     ToucanTTS and the HiFiGAN generator
-  infer      the end-to-end text -> wave interface
+  models     ToucanTTS, the vocoders, the GST, the aligner, the embedding GAN
+  infer      the end-to-end text -> wave interface, prosody cloning, the
+             slider interface
   weights    state dicts from the JAX package's variables
+  load       state dicts from the reference's checkpoint files
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -275,6 +275,11 @@ class AudioPreprocessor:
             audio, _, _ = trim_silence(audio, self.final_sr)
         return audio
 
+    def audio_to_wave_tensor(self, audio, normalize: bool = True) -> np.ndarray:
+        """The conditioned wave on the host (loudness, resampling, trim), or
+        the input as float32 with ``normalize=False``."""
+        return self.normalize_audio(audio) if normalize else np.asarray(audio, np.float32)
+
     def audio_to_mel_spec_tensor(self, audio, normalize: bool = True,
                                  explicit_sampling_rate: int | None = None,
                                  device=None) -> torch.Tensor:

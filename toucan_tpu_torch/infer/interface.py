@@ -4,10 +4,10 @@ Counterpart of ``toucan_tpu/infer/interface.py`` (reference
 ``InferenceInterfaces/ToucanTTSInterface.py``): language/accent setters,
 the utterance embedding (given, or from reference audio through the GST),
 the prosody-control knobs, per-phone prosody overrides, batched synthesis,
-``read_to_file``, ``read_aloud``, the HiFiGAN or BigVGAN vocoder and
-``quantize_vocoder`` (int8 HiFiGAN stages).  Inputs are padded to
-the same buckets as the JAX interface (32 phones, 16 frames per phone,
-64 vocoder frames), so both compute on the same shapes.  Text to wave runs
+``read_to_file``, ``read_aloud``, ``plot_synthesis``, the HiFiGAN or
+BigVGAN vocoder and ``quantize_vocoder`` (int8 HiFiGAN stages).  Inputs are
+padded to the same buckets as the JAX interface (32 phones, 16 frames per
+phone, 64 vocoder frames), so both compute on the same shapes.  Text to wave runs
 on the device without a host round trip; frames past each mel length are
 zeroed before vocoding.  Every entry point runs its convs and matmuls in
 f32 (``utils.device.f32_precision``) whatever the caller's TF32 settings,
@@ -367,16 +367,72 @@ class ToucanTTSInterface:
     def __call__(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                  energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
                  durations=None, pitch=None, energy=None, input_is_phones=False,
-                 return_duration_pitch_energy=False, glow_noise=None):
-        (wave, _, dur, pit, ene, lens), n = self._dispatch_call(
+                 return_duration_pitch_energy=False, return_plot_as_filepath=False,
+                 glow_noise=None):
+        """The 24 kHz wave; with ``return_duration_pitch_energy`` also the
+        per-phone durations, pitch and energy, with ``return_plot_as_filepath``
+        (and not the former) the path of a PNG of ``plot_synthesis``."""
+        (wave, after, dur, pit, ene, lens), n = self._dispatch_call(
             text, duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
             pause_duration_scaling_factor, durations, pitch, energy, input_is_phones,
             glow_noise)
-        wave = wave[0, :int(lens[0]) * SAMPLES_PER_FRAME].cpu().numpy()
+        mel_len = int(lens[0])
+        wave = wave[0, :mel_len * SAMPLES_PER_FRAME].cpu().numpy()
         if return_duration_pitch_energy:
             return (wave, dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy(),
                     ene[0, :n, 0].cpu().numpy())
+        if return_plot_as_filepath:
+            if input_is_phones:
+                labels = self.text2phone.postprocess_phoneme_string(
+                    text, for_feature_extraction=False, for_plot_labels=True)
+            else:
+                labels = self.text2phone.get_phone_string(text, for_plot_labels=True)
+            path = self.plot_synthesis(after[0, :mel_len].cpu().numpy(),
+                                       dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy(),
+                                       labels)
+            return wave, path
         return wave
+
+    def plot_synthesis(self, mel, durations, pitch, labels, path=None):
+        """Spectrogram + prosody overview plot (reference:
+        ``ToucanTTSInterface.py:171-228``): mel image, per-phone duration
+        boundaries with phone labels on the x axis, pitch curve overlay.
+        Returns the saved filepath.  Needs matplotlib, imported here."""
+        import tempfile
+
+        import matplotlib
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        mel = np.asarray(mel)
+        durations = np.asarray(durations, np.int64)
+        pitch = np.asarray(pitch).reshape(-1)
+        fig, ax = plt.subplots(figsize=(9, 4))
+        ax.imshow(mel.T, origin="lower", aspect="auto", cmap="GnBu",
+                  interpolation="nearest")
+        bounds = np.cumsum(durations)
+        ax.vlines(bounds - 0.5, 0, mel.shape[1] - 1, colors="black",
+                  linewidth=0.4, alpha=0.4)
+        centers = bounds - durations / 2.0
+        n = min(len(centers), len(labels))
+        ax.set_xticks(centers[:n])
+        ax.set_xticklabels(list(labels)[:n], fontsize=7)
+        # per-frame pitch curve (phone-level values expanded by duration),
+        # scaled into the lower 40% of the mel axis like the reference plot
+        pitch_frames = np.repeat(pitch[:len(durations)], durations)
+        if len(pitch_frames) and pitch_frames.max() > 0:
+            scaled = pitch_frames / pitch_frames.max() * (mel.shape[1] * 0.4)
+            ax.plot(np.arange(len(scaled)), scaled, color="crimson",
+                    linewidth=1.2, label="pitch")
+            ax.legend(loc="upper right", fontsize=7)
+        ax.set_xlim(-0.5, mel.shape[0] - 0.5)
+        ax.set_ylabel("mel bin")
+        fig.tight_layout()
+        if path is None:
+            path = tempfile.NamedTemporaryFile(suffix=".png", delete=False).name
+        fig.savefig(path, dpi=120)
+        plt.close(fig)
+        return path
 
     @f32_precision()
     def synthesize_batch(self, texts, input_is_phones=False, languages=None,

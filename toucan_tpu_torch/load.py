@@ -3,8 +3,10 @@
 The port's twin of ``toucan_tpu/compat/load.py``, for the formats of the
 reference release (``run_model_downloader.py``): ToucanTTS ``best.pt``
 ({"model": ..., "default_emb": ...}), vocoder ``best.pt`` ({"generator":
-...}) and the embedding function ``embedding_function.pt``
-({"style_emb_func": ...}).  The port's modules use the reference's
+...}), the embedding function ``embedding_function.pt``
+({"style_emb_func": ...}), the aligner ``aligner.pt`` ({"asr_model": ...})
+and the embedding GAN ``embedding_gan.pt`` ({"model_parameters": ...,
+"generator_state_dict": ...}).  The port's modules use the reference's
 state-dict keys, so loading is: weight norm folded (``fold_weight_norm``),
 then the reference's constant buffers that the port computes instead are
 dropped by name:
@@ -176,6 +178,32 @@ def load_style_embedding(path: str) -> dict:
     """The StyleEmbedding (GST) state dict of an embedding-function checkpoint."""
     ckpt = _torch_load(path)
     return reference_state_dict(ckpt["style_emb_func"] if "style_emb_func" in ckpt else ckpt)
+
+
+def load_aligner(path: str) -> dict:
+    """The Aligner state dict of an aligner checkpoint (``asr_model``);
+    ``models.aligner.Aligner.for_state_dict`` builds its module."""
+    ckpt = _torch_load(path)
+    return reference_state_dict(ckpt["asr_model"] if "asr_model" in ckpt else ckpt)
+
+
+def load_embedding_gan(path: str):
+    """-> (generator state dict, ResNetG of the checkpoint's shape,
+    dataset_mean, dataset_std (numpy or None)).
+
+    Reads the reference ``embedding_gan.pt`` (``GAN.py:31-39``): the
+    generator's shape from its ``model_parameters``, the weights from
+    ``generator_state_dict``."""
+    from toucan_tpu_torch.models.embedding_gan import ResNetG
+
+    ckpt = _torch_load(path)
+    mp = ckpt["model_parameters"]
+    data_dim = mp["data_dim"][-1] if isinstance(mp["data_dim"], (list, tuple)) else mp["data_dim"]
+    generator = ResNetG(data_dim=data_dim, z_dim=mp["z_dim"], size=mp["size"],
+                        nfilter=mp["nfilter"], nfilter_max=mp["nfilter_max"])
+    stats = [ckpt.get(k) for k in ("dataset_mean", "dataset_std")]
+    mean, std = [v.detach().cpu().numpy() if hasattr(v, "detach") else v for v in stats]
+    return dict(ckpt["generator_state_dict"]), generator, mean, std
 
 
 def interface_from_torch(tts_path: str, vocoder_path: str, embedding_path: str,

@@ -5,7 +5,9 @@ The JAX package keeps its weights as nested dicts (``params``,
 arrays and return the port's ``state_dict``, whose keys are the reference
 IMS-Toucan ones.  They invert ``toucan_tpu/compat/torch_toucan.py::
 convert_toucan_tts``, ``compat/torch_vocoder.py::convert_hifigan`` /
-``convert_bigvgan`` and ``compat/torch_gst.py::convert_style_embedding``:
+``convert_bigvgan``, ``compat/torch_gst.py::convert_style_embedding``,
+``compat/torch_aligner.py::convert_aligner`` and
+``compat/torch_gan.py::convert_resnet_g``:
 only layouts change (flax (k, in, out) conv kernels and (in, out) dense
 kernels become torch (out, in, k) and (out, in)), never values.  No JAX
 is needed to call them.
@@ -47,6 +49,13 @@ def _count(tree, prefix) -> int:
     return sum(1 for k in tree if rx.match(k))
 
 
+def _batch_norm(w: _Writer, key, p, s):
+    w.norm(key, p)
+    w.sd[f"{key}.running_mean"] = _t(s["mean"])
+    w.sd[f"{key}.running_var"] = _t(s["var"])
+    w.sd[f"{key}.num_batches_tracked"] = torch.tensor(0)
+
+
 def _conformer(w: _Writer, key, p, stats):
     if "embed" in p:
         w.linear(f"{key}.embed.0", p["embed"]["fc1"])
@@ -68,11 +77,7 @@ def _conformer(w: _Writer, key, p, stats):
         cm = bp["conv_module"]
         for name in ("pointwise_conv1", "depthwise_conv", "pointwise_conv2"):
             w.conv(f"{bk}.conv_module.{name}", cm[name])
-        w.norm(f"{bk}.conv_module.norm", cm["norm"])
-        bn = bs["conv_module"]["norm"]
-        w.sd[f"{bk}.conv_module.norm.running_mean"] = _t(bn["mean"])
-        w.sd[f"{bk}.conv_module.norm.running_var"] = _t(bn["var"])
-        w.sd[f"{bk}.conv_module.norm.num_batches_tracked"] = torch.tensor(0)
+        _batch_norm(w, f"{bk}.conv_module.norm", cm["norm"], bs["conv_module"]["norm"])
     if "output_norm" in p:
         w.norm(f"{key}.output_norm", p["output_norm"])
     if "hs_emb_projection" in p:
@@ -222,10 +227,7 @@ def style_embedding_from_jax(variables) -> dict:
     for i in range(_count(p, "conv_")):
         conv, bn = f"gst.ref_enc.convs.{3 * i}", f"gst.ref_enc.convs.{3 * i + 1}"
         w.sd[f"{conv}.weight"] = _t(np.transpose(np.asarray(p[f"conv_{i}"]["kernel"]), (3, 2, 0, 1)))
-        w.norm(bn, p[f"bn_{i}"])
-        w.sd[f"{bn}.running_mean"] = _t(stats[f"bn_{i}"]["mean"])
-        w.sd[f"{bn}.running_var"] = _t(stats[f"bn_{i}"]["var"])
-        w.sd[f"{bn}.num_batches_tracked"] = torch.tensor(0)
+        _batch_norm(w, bn, p[f"bn_{i}"], stats[f"bn_{i}"])
     gru = p["gru"]
     for layer in range(_count(gru, "w_ih_")):
         base = "gst.ref_enc.gst"
@@ -237,4 +239,58 @@ def style_embedding_from_jax(variables) -> dict:
     w.sd["gst.stl.gst_embs"] = _t(stl["gst_embs"])
     for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
         w.linear(f"gst.stl.mha.{name}", stl[name])
+    return w.sd
+
+
+def aligner_from_jax(variables) -> dict:
+    """JAX Aligner variables -> the port's Aligner state dict.
+
+    Inverts ``compat/torch_aligner.py::convert_aligner``: the conv layers at
+    ``convs.{2i}`` (dropouts at the odd indices), the LSTM's two directions
+    as ``rnn.*_l0`` and ``rnn.*_l0_reverse``, the projection ``proj``.
+    """
+    p, stats = variables["params"], variables["batch_stats"]
+    w = _Writer()
+    for i in range(_count(p, "conv_")):
+        key = f"convs.{2 * i}"
+        w.conv(f"{key}.conv", p[f"conv_{i}"]["conv"])
+        _batch_norm(w, f"{key}.bnorm", p[f"conv_{i}"]["bn"], stats[f"conv_{i}"]["bn"])
+    for name, suffix in (("lstm_fwd", ""), ("lstm_bwd", "_reverse")):
+        d = p[name]
+        w.sd[f"rnn.weight_ih_l0{suffix}"] = _t(np.asarray(d["w_ih"]["kernel"]).T)
+        w.sd[f"rnn.weight_hh_l0{suffix}"] = _t(np.asarray(d["w_hh_kernel"]).T)
+        w.sd[f"rnn.bias_ih_l0{suffix}"] = _t(d["w_ih"]["bias"])
+        w.sd[f"rnn.bias_hh_l0{suffix}"] = _t(d["w_hh_bias"])
+    w.linear("proj", p["proj"])
+    return w.sd
+
+
+def resnet_g_from_jax(variables, size: int = 4) -> dict:
+    """JAX ResNetG variables -> the port's ResNetG state dict, for a
+    generator of image side ``size``.
+
+    Inverts ``compat/torch_gan.py::convert_resnet_g``: flax (kh, kw, in,
+    out) Conv2d kernels become torch (out, in, kh, kw); ``block_{k}`` goes
+    to ``resnet.{2k}`` for the first log2(size / 4) blocks, each followed by
+    an Upsample, and the last two blocks follow them.
+    """
+    p, stats = variables["params"], variables.get("batch_stats", {})
+    w = _Writer()
+    w.linear("fc", p["fc"])
+    _batch_norm(w, "bn1d", p["bn1d"], stats["bn1d"])
+    nlayers = int(np.log2(size / 4))
+    torch_indices = [2 * k for k in range(nlayers)] + [2 * nlayers, 2 * nlayers + 1]
+    for ours, idx in enumerate(torch_indices):
+        bp, bs, key = p[f"block_{ours}"], stats[f"block_{ours}"], f"resnet.{idx}"
+        for conv, bn in (("conv_0", "bn_0"), ("conv_1", "bn_1"), ("conv_s", "bn_s")):
+            if conv not in bp:
+                continue
+            w.sd[f"{key}.{conv}.weight"] = _t(np.transpose(np.asarray(bp[conv]["kernel"]),
+                                                           (3, 2, 0, 1)))
+            if "bias" in bp[conv]:
+                w.sd[f"{key}.{conv}.bias"] = _t(bp[conv]["bias"])
+            _batch_norm(w, f"{key}.bn2d_{bn[3:]}", bp[bn], bs[bn])
+    w.sd["conv_img.weight"] = _t(np.transpose(np.asarray(p["conv_img"]["kernel"]), (3, 2, 0, 1)))
+    w.sd["conv_img.bias"] = _t(p["conv_img"]["bias"])
+    w.linear("fc_out", p["fc_out"])
     return w.sd
