@@ -16,7 +16,10 @@ Phases, each reported on its own lines:
    at B=2, H=4, d=48, T in (128, 2048), and at the main path's encoder
    (B=1, T=128) and decoder (B=1, T=2048, 110 and 2048 valid keys), with
    its time, the plain version's, that of ``scaled_dot_product_attention``
-   on a materialised bias, and its bounds (split TF32 and f32);
+   on a materialised bias, and its bounds (split TF32 and f32); then its
+   bf16 instantiation (``k1_bf16``) at the same shapes and at d = 96,
+   against its plain version (f32 arithmetic on the same bf16 values),
+   beside the f32 kernel, SDPA on bf16 and its bf16 bound;
 3. k2: the fused HiFiGAN stage kernel against its plain version at the four
    stage shapes of 512 and of 2048 mel frames, with the tile and cluster
    each launch took, on HiFiGAN's weights and on weights at unit gain
@@ -27,7 +30,10 @@ Phases, each reported on its own lines:
    launch geometry, and at 2048 frames timed in turns against one chunk a
    warp; then at T = 8, at T = 4099 (rows not 16-byte aligned) with C = 20
    and 32, and at 100 times the amplitude, where the plain version and the
-   kernel are also held against the same formula in float64;
+   kernel are also held against the same formula in float64; then its bf16
+   instantiation (``k5_bf16``) at the four stage shapes of 512 and 2048
+   frames and at T = 8, 4099 and 4100, every sample within one bf16 ulp of
+   its plain version, beside the f32 kernel and the halved bytes bound;
 5. k3: the quantized HiFiGAN stage kernel, int8 and bf16, against its plain
    versions at the four stage shapes of 512 mel frames, with scales
    calibrated on the same input, K2's time beside it, and the tiling each
@@ -122,7 +128,21 @@ Phases, each reported on its own lines:
    and least squares, ``modify_embed`` card against CPU on the same bank
    and basis (1e-5), and ``ControllableInterface.read`` without a plot
    (the card's machine has no matplotlib): 48 kHz, each sample twice, K1
-   12 and K2 4.
+   12 and K2 4;
+12. bf16 (after the HiFiGAN and after the BigVGAN path): the full-width
+   interface with ``dtype=torch.bfloat16`` on the main path with its
+   launches counted (HiFiGAN: K1 12, all on bf16, and K3 4 bf16 stages;
+   BigVGAN: K1 12 and K5 73, all on bf16), the bf16 card against the f32
+   card and against the bf16 CPU on one input with durations given (each
+   within twice the CPU's own bf16-against-f32 distance), and the steady
+   graph calls in turns with the f32 interface; precision: an interface
+   with ``matmul_precision="default"`` (K1 12 and K2 4 as before), its mel
+   against "float32", its graph call in turns, the caller's flags kept;
+   fastspeech2 (last): a full-width ``fastspeech2_config()`` written as
+   reference ``.pt`` files and loaded by ``interface_from_torch`` (K1 12 at
+   d = 96, K2 4), card against CPU; and, in the clone phase, the native
+   resampler against numpy on the reference.  Each added phase prints its
+   wall time.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -147,6 +167,7 @@ import numpy as np
 import torch
 
 from toucan_tpu_torch import native
+from toucan_tpu_torch.frontend import audio
 from toucan_tpu_torch.data.extraction import compute_frame_energy
 from toucan_tpu_torch.frontend.text import TextFrontend
 from toucan_tpu_torch.infer.cloner import UtteranceCloner
@@ -172,10 +193,11 @@ from toucan_tpu_torch.load import GLOW_WEIGHT_NORM, interface_from_torch, split_
 from toucan_tpu_torch.models.aligner import Aligner, alignment_from_logits, path_score
 from toucan_tpu_torch.models.embedding_gan import GanWrapper, ResNetG
 from toucan_tpu_torch.models.gst import StyleEmbedding
-from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
+from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig, fastspeech2_config
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 from toucan_tpu_torch.nn import positional
+from toucan_tpu_torch.utils.device import matmul_precision
 
 SEED = 0
 F32_PEAK = 67e12      # H100 SXM f32 CUDA-core FLOP/s (NVIDIA data sheet)
@@ -520,7 +542,7 @@ def k5_one_tile(fn):
 def k5_geometry(x):
     geo = aliasfree_module.geometry_for(x.transpose(1, 2).contiguous())
     return (f"runs of {geo.seg_chunks} chunks, {geo.items} runs, {geo.blocks} blocks "
-            f"({geo.warps} warps), {'float4' if geo.vector else 'scalar'} access")
+            f"({geo.warps} warps), {'16-byte' if geo.vector else 'scalar'} access")
 
 
 def phase_k5(dev, gen):
@@ -601,6 +623,123 @@ def phase_k5(dev, gen):
         if scale == 1.0:
             worst = max(worst, err)
         del x, got, plain, ref
+    return dict(rows[512], max_abs_err=worst)
+
+
+def k1_bf16_inputs(gen, dev, b, h, d, t, lengths):
+    """``k1_inputs`` rounded to bf16, as a bf16 model hands them to K1."""
+    *xs, lens = k1_inputs(gen, dev, b, h, d, t, lengths)
+    return (*(x.to(torch.bfloat16) for x in xs), lens)
+
+
+def phase_k1_bf16(dev, gen):
+    """K1's bf16 instantiation against its plain version (f32 arithmetic on
+    the same bf16 values) at the shapes of ``k1_shapes`` (d = 48, the
+    default model's) and at B=2 T=2048 with d = 96 (``fastspeech2_config``),
+    timed beside SDPA on the same bf16 inputs with the rel-pos bias and the
+    key mask as a bf16 float mask, and beside the f32 kernel on the same
+    values; bound by bf16 products.  The row is the B=2 T=2048 d=48 shape's,
+    with the worst error of all."""
+    h = 4
+    worst, row = 0.0, None
+    cases = [(label, b, t, lengths, 48) for label, b, t, lengths in k1_shapes()]
+    cases.append(("B=2 T=2048, d=96", 2, 2048, [2048, int(0.7 * 2048)], 96))
+    for label, b, t, lengths, d in cases:
+        args = k1_bf16_inputs(gen, dev, b, h, d, t, lengths)
+        q_u, q_v, k, v, p, lens = args
+        err, want = k1_error(args)
+        worst = max(worst, err)
+        ms = time_ms(lambda: flash_rel_attention(*args), 20)
+        plain_ms = time_ms(lambda: flash_rel_attention_plain(*args), 5)
+        f32_args = (*(x.float() for x in args[:5]), lens)
+        f32_ms = time_ms(lambda: flash_rel_attention(*f32_args), 20)
+        ar = torch.arange(t, device=dev)
+        rel = (t - 1 - ar[:, None] + ar[None, :]).expand(b, h, t, t)
+        bias = torch.gather(q_v.float() @ p.float().transpose(-1, -2)[None], -1, rel) / math.sqrt(d)
+        bias = bias.masked_fill(~(ar[None, :] < lens[:, None])[:, None, None, :],
+                                float("-inf")).to(torch.bfloat16)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_err = (sdpa(q_u, k, v, attn_mask=bias).float() - want).abs().max().item()
+        library_ms = time_ms(lambda: sdpa(q_u, k, v, attn_mask=bias), 20)
+        del bias, rel
+        flops = sum(6 * h * d * t * int(n) for n in lens.tolist())
+        nbytes = 2 * (4 * b * h * t * d + h * (2 * t - 1) * d) + 4 * (b * h * t * d + b)
+        bound_ms, bound_by = bound(flops, nbytes, PEAK["bf16"])
+        log("k1_bf16", f"{label}: B={b} H={h} T={t} d={d} lengths={lens.tolist()} "
+                       f"max_abs_err={err:.3e} (tolerance {TOL_K1}) kernel_ms={ms:.4f} "
+                       f"f32_kernel_ms={f32_ms:.4f} plain_ms={plain_ms:.4f} "
+                       f"library_ms={library_ms:.4f} (sdpa bf16 err {lib_err:.2e}) "
+                       f"bound_ms={bound_ms:.4f} ({bound_by}, bf16) "
+                       f"achieved_tflops={flops / ms / 1e9:.2f}")
+        if not err <= TOL_K1:
+            raise AssertionError(f"K1 bf16 disagrees with its plain version: {label}: {err:.3e}")
+        if label == "B=2 T=2048":
+            row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                       library_ms=library_ms)
+    return dict(row, max_abs_err=worst)
+
+
+def k5_bf16_error(x, alpha, beta):
+    """(max abs err, max of err / (one bf16 ulp of |plain| + TOL_K5)) of
+    K5's bf16 instantiation against its plain version: both round one f32
+    value to bf16, and the two f32 values differ by up to TOL_K5 (the
+    kernel's reduced sine), so a rounding may fall one ulp apart."""
+    got = alias_free_snake(x, alpha, beta)
+    torch.cuda.synchronize()
+    want = alias_free_snake_plain(x, alpha, beta).float()
+    diff = (got.float() - want).abs()
+    ulp = torch.ldexp(torch.ones_like(want), torch.frexp(want)[1] - 8)
+    return diff.max().item(), (diff / (ulp + TOL_K5)).max().item()
+
+
+def phase_k5_bf16(dev, gen):
+    """K5's bf16 instantiation at BigVGAN's four stage shapes of 512 and
+    2048 frames (B = 1) against its plain version (``k5_bf16_error``), each
+    timed beside the f32 kernel on the same values, with the share of its
+    bytes bound (2 bytes in and out a sample) and GB/s; then T = 4099 (rows
+    not 16-byte aligned) and T = 8.  The row: one activation at each
+    512-frame stage shape, summed."""
+    rows, worst = {}, 0.0
+    for frames in (512, 2048):
+        totals = dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0)
+        for scale, c in BIGVGAN_STAGES:
+            t = scale * frames
+            x, alpha, beta = (v.to(torch.bfloat16) for v in k5_inputs(gen, dev, 1, t, c))
+            err, ratio = k5_bf16_error(x, alpha, beta)
+            worst = max(worst, err)
+            ms = graph_ms(lambda: alias_free_snake(x, alpha, beta))
+            x32, a32, b32 = x.float(), alpha.float(), beta.float()
+            f32_ms = graph_ms(lambda: alias_free_snake(x32, a32, b32))
+            plain_ms = time_ms(lambda: alias_free_snake_plain(x, alpha, beta), 5)
+            flops, nbytes = 56 * t * c, 2 * (2 * t * c + 2 * c)
+            bound_ms, _ = bound(flops, nbytes)
+            log("k5_bf16", f"{frames} frames: B=1 T={t} C={c} max_abs_err={err:.3e} "
+                           f"(at most {ratio:.3f} of one bf16 ulp + {TOL_K5}) "
+                           f"kernel_ms={ms:.4f} f32_kernel_ms={f32_ms:.4f} "
+                           f"plain_ms={plain_ms:.4f} bound_ms={bound_ms:.4f} "
+                           f"share_of_bound={bound_ms / ms:.4f} GB/s={nbytes / ms / 1e6:.1f} "
+                           f"{k5_geometry(x)}")
+            if not ratio <= 1.0:
+                raise AssertionError(f"K5 bf16 disagrees with its plain version at T={t} C={c}")
+            del x, x32
+            totals["ms"] += ms
+            totals["plain_ms"] += plain_ms
+            totals["flops"] += flops
+            totals["nbytes"] += nbytes
+        bound_ms, bound_by = bound(totals["flops"], totals["nbytes"])
+        log("k5_bf16", f"one activation at each of the four stage shapes of {frames} frames: "
+                       f"kernel_ms={totals['ms']:.4f} plain_ms={totals['plain_ms']:.4f} "
+                       f"bound_ms={bound_ms:.4f} share_of_bound={bound_ms / totals['ms']:.4f}")
+        rows[frames] = dict(ms=totals["ms"], plain_ms=totals["plain_ms"], bound_ms=bound_ms,
+                            bound_by=bound_by, library_ms=None)
+    for b, t, c in ((1, 8, 256), (2, 4099, 20), (1, 4100, 32)):
+        x, alpha, beta = (v.to(torch.bfloat16) for v in k5_inputs(gen, dev, b, t, c))
+        err, ratio = k5_bf16_error(x, alpha, beta)
+        log("k5_bf16", f"B={b} T={t} C={c}: max_abs_err={err:.3e} (at most {ratio:.3f} of one "
+                       f"bf16 ulp + {TOL_K5}) {k5_geometry(x)}")
+        if not ratio <= 1.0:
+            raise AssertionError(f"K5 bf16 disagrees with its plain version at B={b} T={t} C={c}")
+        worst = max(worst, err)
     return dict(rows[512], max_abs_err=worst)
 
 
@@ -1005,7 +1144,9 @@ def phase_other_models(dev):
 
 
 WRAPPERS = {"k1": flash_rel_attention, "k2": hifigan_stage, "k3": quantized_stage,
-            "k4": imcol_stage, "k5": alias_free_snake}
+            "k4": imcol_stage, "k5": alias_free_snake,
+            # the bf16 instantiations' launches, also counted in k1 and k5
+            "k1_bf16": flash_rel_attention.bf16, "k5_bf16": alias_free_snake.bf16}
 
 
 def phase_grad_refusal(dev, gen, vocoder):
@@ -1092,8 +1233,9 @@ def per_synthesis(n, **kernels):
     return {k: v * n for k, v in kernels.items()}
 
 
-def check_length(wave, dur):
-    if len(wave) != int(dur.sum()) // 2 * 2 * 384:
+def check_length(wave, dur, glow=True):
+    """A glow drops an odd last frame; a glow-less model keeps it."""
+    if len(wave) != (int(dur.sum()) // 2 * 2 if glow else int(dur.sum())) * 384:
         raise AssertionError(f"wave length {len(wave)} for durations summing to {dur.sum()}")
 
 
@@ -1109,13 +1251,13 @@ def phase_main(iface, launches, per_call, label):
                                   lambda: iface(LONG_TEXT, return_duration_pitch_energy=True),
                                   iface, per_call, launches, waves_of=lambda out: out[:1],
                                   warm=warm)
-        check_length(steady, dur)
+        check_length(steady, dur, iface.config.use_postflow)
     profiled_call(iface, launches, per_call, label)
     wave, dur, _, _ = drive(f"{label} call, 8 frames per phone",
                             lambda: iface(LONG_TEXT, durations=np.full(n, 8),
                                           return_duration_pitch_energy=True),
                             iface, per_call, launches, waves_of=lambda out: out[:1])
-    check_length(wave, dur)
+    check_length(wave, dur, iface.config.use_postflow)
     log("main", f"{label} explicit durations: {len(wave) // 384} frames")
     drive(f"{label} synthesize_batch x4", lambda: iface.synthesize_batch(BATCH_TEXTS),
           iface, per_call, launches, waves_of=list)
@@ -1269,7 +1411,7 @@ def steady(iface, fn):
     return out
 
 
-def churn_position_tables(lengths, d_model):
+def churn_position_tables(lengths, d_model, dtype):
     """Drop every cached position table, hand the allocator's free memory
     back to CUDA, and make, for each of ``lengths``, 40 tables of 1
     to 40 positions fewer: each a little smaller than a table that a graph
@@ -1278,7 +1420,8 @@ def churn_position_tables(lengths, d_model):
     graph reads, outlive their cache.  Returns the new tables, to keep them
     in place across the next replay."""
     device = torch.device("cuda", torch.cuda.current_device())
-    read = [weakref.ref(positional._cached_table(length, d_model, device)) for length in lengths]
+    read = [weakref.ref(positional._cached_table(length, d_model, device, dtype))
+            for length in lengths]
     positional._cached_table.cache_clear()
     gc.collect()
     torch.cuda.empty_cache()
@@ -1340,7 +1483,8 @@ def phase_graphs(iface, per_call, label, launches):
     eager_mode(iface, False)
     check_equal(graph, eager, "graph call")
     n_pad = _round_up(n, PHONE_BUCKET)
-    others = churn_position_tables((n_pad, n_pad * FRAMES_PER_PHONE), iface.config.adim)
+    others = churn_position_tables((n_pad, n_pad * FRAMES_PER_PHONE), iface.config.adim,
+                                   iface.config.dtype)
     again = drive(f"{label} graph call, fixed noise, after the position tables were dropped "
                   f"from their cache and {len(others)} others made", fixed_noise_call, iface,
                   per_call, launches, waves_of=lambda out: out[:1], warm=0)
@@ -1411,9 +1555,11 @@ def report_profile(prof, wall_us, label, what="one __call__"):
     return 1 - busy / wall_us
 
 
-def phase_ref(label, iface, cpu, tol_wave, relative=False):
+def phase_ref(label, iface, cpu, tol_wave, relative=False, mel_scale=False):
     """The card against the CPU (plain versions) on the same weights and
-    noise; ``relative``: the wave's tolerance is a share of its peak."""
+    noise; ``relative``: the wave's tolerance is a share of its peak;
+    ``mel_scale``: the mel's is TOL_REF times the mel's peak where that
+    passes 1 (f32 sums in other orders err in proportion to the values)."""
     text = "Hello world, this is a test."
     feats = iface.text2phone.string_to_features(text)
     n = len(feats)
@@ -1433,7 +1579,11 @@ def phase_ref(label, iface, cpu, tol_wave, relative=False):
         outs[name] = [r.cpu().numpy() for r in res]
     if not np.array_equal(outs["cuda"][2], outs["cpu"][2]):
         raise AssertionError(f"{label}: predicted durations differ between the card and the CPU")
-    mel_err = np.abs(outs["cuda"][1] - outs["cpu"][1]).max()
+    # the mel before the PostNet and glow too: seeded weights start the
+    # glow's coupling ``end`` convs at zero, so the mel after it follows the
+    # noise alone
+    mel_err = max(np.abs(outs["cuda"][i] - outs["cpu"][i]).max() for i in (0, 1))
+    tol_mel = TOL_REF * (max(1.0, np.abs(outs["cpu"][1]).max()) if mel_scale else 1.0)
     z = noise[0, :64]
     w_cuda = iface(text, durations=np.full(n, 2), glow_noise=z)
     w_cpu = cpu(text, durations=np.full(n, 2), glow_noise=z)
@@ -1443,8 +1593,8 @@ def phase_ref(label, iface, cpu, tol_wave, relative=False):
         tol_wave *= peak
     log("ref", f"{label}, {n} phones: durations equal, mel max_abs_err={mel_err:.3e}, "
                f"wave ({len(w_cuda)} samples, peak {peak:.3e}) "
-               f"max_abs_err={wave_err:.3e}, tolerance {TOL_REF} (mel), {tol_wave:.3e} (wave)")
-    if not (peak > 0 and mel_err <= TOL_REF and wave_err <= tol_wave):
+               f"max_abs_err={wave_err:.3e}, tolerance {tol_mel:.3e} (mel), {tol_wave:.3e} (wave)")
+    if not (peak > 0 and mel_err <= tol_mel and wave_err <= tol_wave):
         raise AssertionError(f"{label}: the card disagrees with the CPU reference")
 
 
@@ -1486,6 +1636,197 @@ def check_tf32_default(label, fn, reset=lambda: None):
                f"max_abs_err={err:.3e} (tolerance {TOL_TF32_DEFAULT}); caller's flags unchanged")
     if not err <= TOL_TF32_DEFAULT:
         raise AssertionError(f"{label} depends on the caller's TF32 setting")
+
+
+# ---------------------------------------------------------- serving (PR 11)
+
+BF16_HIFIGAN = dict(k1=12, k1_bf16=12, k3=4)
+BF16_BIGVGAN = dict(k1=12, k1_bf16=12, k5=K5_LAUNCHES, k5_bf16=K5_LAUNCHES)
+# bf16 against f32, and the bf16 card against the bf16 CPU, on the same
+# input with durations given: each within BF16_FACTOR x the port's own
+# bf16-against-f32 distance on the CPU (the rule the CPU tests hold the
+# port's bf16 path to against JAX's)
+BF16_FACTOR = 2.0
+# "default" (TF32 in cuDNN and cuBLAS) against "float32" on one input with
+# durations given: TF32 keeps 10 mantissa bits, and the differences pass
+# through 12 conformer blocks, 18 glow blocks and the vocoder's upsamplers
+TOL_TF32_MEL = 5e-2
+TOL_RESAMPLE = 2e-6    # native against numpy: float32 rounding (tests/test_native_resample.py)
+REF_TEXT = "Hello world, this is a test."
+
+
+def fixed_outputs(it):
+    """{name: numpy f32} of REF_TEXT at 2 frames a phone on fixed noise and a
+    fixed speaker: from ``ToucanTTS.infer`` under the interface's policy the
+    decoder's mel (``before``, before the PostNet and glow), the mel after
+    the glow, and the predicted pitch and energy; from ``_dispatch_call`` the
+    wave.  Seeded weights start the glow's coupling ``end`` convs at zero,
+    so the glow maps its noise alone and the mel after it does not show the
+    decoder; ``before`` does."""
+    feats = it.text2phone.string_to_features(REF_TEXT)
+    n = len(feats)
+    rng = np.random.RandomState(SEED)
+    x = np.zeros((1, 32, feats.shape[1]), np.float32)
+    x[0, :n] = feats
+    noise = (0.8 * rng.randn(1, 512, 80)).astype(np.float32)
+    utt = rng.randn(1, 64).astype(np.float32)
+    dur = np.zeros((1, 32), np.int32)
+    dur[0, :n] = 2
+    d = it.device
+    with torch.inference_mode(), matmul_precision(it.matmul_precision):
+        before, after, _, pitch, energy, lens = it.model.infer(
+            torch.tensor(x, device=d), torch.tensor([n], device=d), 512,
+            utterance_embedding=torch.tensor(utt, device=d),
+            lang_ids=torch.tensor([[it.lang_id]], device=d),
+            gold_durations=torch.tensor(dur, device=d), glow_noise=torch.tensor(noise, device=d))
+    length = int(lens[0])
+    (wave, *_, wave_lens), _ = it._dispatch_call(REF_TEXT, durations=np.full(n, 2),
+                                                 glow_noise=noise[0, :64])
+    out = dict(before=before[0, :length], mel=after[0, :length], pitch=pitch[0, :n],
+               energy=energy[0, :n], wave=wave[0, :int(wave_lens[0]) * 384])
+    return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+
+def compare_bf16(label, card16, card32, cpu16, cpu32):
+    """The bf16 card against the f32 card and against the bf16 CPU, each
+    within BF16_FACTOR x the CPU's own bf16-against-f32 distance, for each
+    of ``fixed_outputs``."""
+    outs = {name: fixed_outputs(it) for name, it in (("card16", card16), ("card32", card32),
+                                                      ("cpu16", cpu16), ("cpu32", cpu32))}
+    msg = []
+    for what in outs["cpu32"]:
+        dist = lambda a, b: float(np.abs(outs[a][what] - outs[b][what]).max())
+        spread = dist("cpu16", "cpu32")
+        pairs = [("card bf16 - card f32", dist("card16", "card32")),
+                 ("card bf16 - CPU bf16", dist("card16", "cpu16"))]
+        msg.append(f"{what}: CPU bf16 - CPU f32 {spread:.3e}; " + ", ".join(
+            f"{k} {v:.3e} ({v / spread:.3f} of it)" for k, v in pairs))
+        if not (spread > 0 and all(v <= BF16_FACTOR * spread for _, v in pairs)):
+            raise AssertionError(f"{label}: bf16 out of {BF16_FACTOR} x the CPU's bf16-against-"
+                                 f"f32 distance: {msg[-1]}")
+    log("bf16", f"{label}, {REF_TEXT!r} at 2 frames a phone, fixed noise, "
+                f"tolerance {BF16_FACTOR} x the CPU's distance: " + "; ".join(msg))
+
+
+def replay_ms(bucket):
+    """Device ms of one replay of a bucket's graph (CUDA events)."""
+    return time_ms(bucket.graph.replay, 5)
+
+
+def graph_calls_in_turns(phase, label, runs):
+    """The steady graph ``__call__`` of each of ``runs`` ({name: interface},
+    every bucket made) on LONG_TEXT in turns (a, b, b, a) x GRAPH_ROUNDS,
+    and each bucket's graph replayed alone by CUDA events."""
+    names = list(runs)
+    n = len(next(iter(runs.values())).text2phone.string_to_features(LONG_TEXT))
+    key = (1, _round_up(n, PHONE_BUCKET), _round_up(n, PHONE_BUCKET) * FRAMES_PER_PHONE,
+           False, False, False)
+    for it in runs.values():
+        it(LONG_TEXT)  # the bucket, made here where an earlier phase dropped it
+    times = in_turns({k: (lambda it=it: steady(it, lambda: it(LONG_TEXT))) for k, it in
+                      runs.items()}, names + names[::-1], GRAPH_ROUNDS)
+    replay = {k: replay_ms(it._e2e_cache[key]) for k, it in runs.items()}
+    log(phase, f"{label}: steady graph __call__ in turns ({', '.join(names + names[::-1])}) "
+               f"x {GRAPH_ROUNDS}: " + "; ".join(
+                   f"{k} median {1e3 * np.median(v):.2f} ms ("
+                   + ", ".join(f"{1e3 * t:.2f}" for t in v) + f"), replay alone "
+                   f"{replay[k]:.2f} ms" for k, v in times.items()))
+
+
+def phase_main_bf16(label, card32, cpu32, vocoder, tts_sd, voc_sd, per_call, launches, card):
+    """The full-width interface with ``dtype=torch.bfloat16`` (``vocoder``
+    named by string, so it is bf16 too): the main path with its launches
+    counted (K1's bf16 instantiation; K3 bf16 stages or K5 bf16), the bf16
+    card against the f32 card and the bf16 CPU (``compare_bf16``), and the
+    steady graph call in turns with the f32 interface ``card32``."""
+    t0 = time.perf_counter()
+    b16 = ToucanTTSInterface(tts_sd, voc_sd, vocoder=vocoder, seed=SEED, dtype=torch.bfloat16)
+    phase_main(b16, launches, per_call, label)
+    cpu16 = ToucanTTSInterface(tts_sd, voc_sd, vocoder=vocoder, seed=SEED, device="cpu",
+                               dtype=torch.bfloat16)
+    compare_bf16(label, b16, card32, cpu16, cpu32)
+    graph_calls_in_turns("bf16", label, {"f32": card32, "bf16": b16})
+    log("bf16", f"{label}: phase wall time {time.perf_counter() - t0:.1f} s ({card})")
+    return b16
+
+
+def phase_precision(tts_sd, voc_sd, card32, launches, card):
+    """``matmul_precision="default"`` (TF32 in cuDNN and cuBLAS) against the
+    f32 interface ``card32``: the main call's launches (the kernels keep
+    their arithmetic: K1 12 + K2 4), the mel of one input with durations
+    given, the steady graph call in turns, and the caller's flags as they
+    were."""
+    t0 = time.perf_counter()
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    tf32 = ToucanTTSInterface(tts_sd, voc_sd, seed=SEED, matmul_precision="default")
+    for name, warm in (("call (first)", None), ("call", 0)):
+        drive(f"default policy {name}", lambda: tf32(LONG_TEXT), tf32, dict(k1=12, k2=4),
+              launches, warm=warm)
+    got, want = fixed_outputs(tf32), fixed_outputs(card32)
+    err = {k: float(np.abs(got[k] - want[k]).max()) for k in want}
+    after = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    log("precision", f"'default' against 'float32', {REF_TEXT!r} at 2 frames a phone: "
+                     + ", ".join(f"{k} max_abs_err={v:.3e} (peak {np.abs(want[k]).max():.3e})"
+                                 for k, v in err.items())
+                     + f"; tolerance {TOL_TF32_MEL} (decoder's mel and mel); the caller's "
+                     f"flags {flags} -> {after}")
+    if not (max(err["before"], err["mel"]) <= TOL_TF32_MEL and after == flags):
+        raise AssertionError("the 'default' policy's mel is too far from 'float32', or the "
+                             "caller's flags moved")
+    graph_calls_in_turns("precision", "hifigan", {"float32": card32, "default": tf32})
+    log("precision", f"phase wall time {time.perf_counter() - t0:.1f} s ({card})")
+
+
+def phase_fastspeech2(launches, card):
+    """A full-width ``fastspeech2_config()`` (adim 384, 4 heads: K1 at
+    d = 96; no glow; unconditional predictors) written as reference-format
+    ``.pt`` files with a 512-channel HiFiGAN and a GST, read back by
+    ``load.interface_from_torch`` (the sniffed config checked), the main
+    path with its launches counted (K1 12 + K2 4), and the card against the
+    CPU (``phase_ref``)."""
+    t0 = time.perf_counter()
+    torch.manual_seed(SEED + 7)
+    cfg = fastspeech2_config()
+    tts_sd = ToucanTTS(cfg).state_dict()
+    voc_sd = HiFiGANGenerator().state_dict()
+    gst_sd = StyleEmbedding().state_dict()
+    emb = torch.from_numpy(np.random.RandomState(SEED + 8).randn(64).astype(np.float32))
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = write_reference_files(tmp, tts_sd, voc_sd, gst_sd, emb)
+        fs2 = interface_from_torch(*paths, seed=SEED)
+        cpu = interface_from_torch(*paths, seed=SEED, device="cpu")
+    if fs2.config != cfg:
+        raise AssertionError(f"the FastSpeech2 checkpoint was sniffed as {fs2.config}")
+    log("fastspeech2", f"reference files sniffed as adim {cfg.adim}, {cfg.aheads} heads "
+                       f"(d = {cfg.adim // cfg.aheads}), use_postflow={cfg.use_postflow}, "
+                       f"conditional_predictors={cfg.conditional_predictors}")
+    phase_main(fs2, launches, dict(k1=12, k2=4), "fastspeech2")
+    # without a glow the mel is the PostNet's, which reaches |26| on these
+    # seeded weights: its tolerance scales with its peak
+    phase_ref("fastspeech2 (d = 96, no glow)", fs2, cpu, TOL_REF, mel_scale=True)
+    log("fastspeech2", f"phase wall time {time.perf_counter() - t0:.1f} s ({card})")
+
+
+def check_native_resample(ref, card):
+    """The native resampler against the numpy path on the clone reference
+    (24 -> 16 kHz), equal within float32 rounding, each timed on the host
+    in turns."""
+    before = dict(native.resample_calls)
+    got = native.resample(ref, 24000, 16000)
+    if native.resample_calls["native"] != before["native"] + 1:
+        raise AssertionError(f"the resampler did not take the native path: "
+                             f"{native.resample_calls}")
+    want = audio.resample_numpy(ref, 24000, 16000)
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    times = in_turns({"native": lambda: native.resample(ref, 24000, 16000),
+                      "numpy": lambda: audio.resample_numpy(ref, 24000, 16000)},
+                     ("native", "numpy", "numpy", "native"), GRAPH_ROUNDS)
+    log("clone", f"resampler on the {len(ref) / 24000:.3f} s reference, 24 -> 16 kHz, host "
+                 f"clock in turns ({card}): " + "; ".join(
+                     f"{k} median {1e3 * np.median(v):.2f} ms" for k, v in times.items())
+        + f"; max_abs_err={err:.3e} (tolerance {TOL_RESAMPLE})")
+    if not err <= TOL_RESAMPLE:
+        raise AssertionError("the native resampler disagrees with the numpy path")
 
 
 CLONE_FRAMES_PER_PHONE = 5  # the reference recording: LONG_TEXT at 5 frames a phone, 24 kHz
@@ -1627,6 +1968,7 @@ def phase_clone(iface, cpu, launches, card):
         lambda: iface(LONG_TEXT, durations=dur, pitch=pitch, energy=energy))
     log("clone", f"{len(r.mel)} mel frames, {len(r.token_ids)} CTC labels; parts, host clock "
                  f"({card}): " + "; ".join(f"{k} {1e3 * v:.2f} ms" for k, v in parts.items()))
+    check_native_resample(ref, card)
 
     # card against CPU
     rng = np.random.RandomState(SEED + 5)
@@ -1772,6 +2114,7 @@ def main():
     gen = torch.Generator(device=dev).manual_seed(SEED)
     phase_build()
     k1 = phase_k1(dev, gen)
+    k1_bf16 = phase_k1_bf16(dev, gen)
 
     torch.manual_seed(SEED)
     tts = ToucanTTS(ToucanTTSConfig())
@@ -1787,6 +2130,7 @@ def main():
     unit = unit_gain_stages(vocoder.to(dev).eval(), gen)
     k2, k2_stage_ms = phase_k2(dev, gen, vocoder, unit)
     k5 = phase_k5(dev, gen)
+    k5_bf16 = phase_k5_bf16(dev, gen)
     k3, k3_stage_ms = phase_k3(dev, gen, vocoder, k2_stage_ms)
     k4 = phase_k4(dev, gen, vocoder, k2_stage_ms, k3_stage_ms)
     rows = dict(k1=k1, k2=k2, k3=k3, k4=k4, k5=k5)
@@ -1805,12 +2149,19 @@ def main():
     phase_tf32_default(iface)
     phase_clone(iface, cpu, launches, smi)
     phase_controllable(iface, launches, smi)
+    b16 = phase_main_bf16("bf16 hifigan", iface, cpu, "hifigan", tts_sd, voc_sd, BF16_HIFIGAN,
+                          launches, smi)
+    del b16
+    phase_precision(tts_sd, voc_sd, iface, launches, smi)
     del cpu
     big = ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan", seed=SEED)
     phase_main(big, launches, dict(k1=12, k5=K5_LAUNCHES), "bigvgan")
     phase_graphs(big, dict(k1=12, k5=K5_LAUNCHES), "bigvgan", launches)
-    phase_ref("bigvgan", big, ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan",
-                                                 device="cpu", seed=SEED), TOL_REF)
+    cpu_big = ToucanTTSInterface(tts_sd, big_sd, vocoder="bigvgan", device="cpu", seed=SEED)
+    phase_ref("bigvgan", big, cpu_big, TOL_REF)
+    b16 = phase_main_bf16("bf16 bigvgan", big, cpu_big, "bigvgan", tts_sd, big_sd,
+                          BF16_BIGVGAN, launches, smi)
+    del b16, cpu_big
     z = (0.8 * np.random.RandomState(SEED).randn(512, 80)).astype(np.float32)
     check_tf32_default("bigvgan __call__ (wave)",
                        lambda: big("Hello world, this is a test.", glow_noise=z), big._clear_caches)
@@ -1841,12 +2192,19 @@ def main():
         imcol.set_utterance_embedding(wave=ref_wave, sr=24000),
         imcol.default_utterance_embedding)[1])
     phase_ref("imcol int8 hifigan", imcol, cpu_imcol, TOL_REF_INT8, relative=True)
+    del imcol, cpu_imcol
+    phase_fastspeech2(launches, smi)
+    log("main", f"launches over the main-path phases: {launches}")
 
     kernels = [
         dict(name="flash_rel_attention", route="cuda",
              source="toucan_tpu_torch/csrc/flash_rel_attention.cu",
-             replaces="toucan_tpu/kernels/pallas_attention.py:109", launches=launches["k1"],
-             **k1),
+             replaces="toucan_tpu/kernels/pallas_attention.py:109",
+             launches=launches["k1"] - launches["k1_bf16"], **k1),
+        dict(name="flash_rel_attention_bf16", route="cuda",
+             source="toucan_tpu_torch/csrc/flash_rel_attention.cu",
+             replaces="toucan_tpu/kernels/pallas_attention.py:109",
+             launches=launches["k1_bf16"], **k1_bf16),
         dict(name="hifigan_stage", route="cuda",
              source="toucan_tpu_torch/csrc/hifigan_stage.cu",
              replaces="toucan_tpu/kernels/pallas_resstack.py:122", launches=launches["k2"],
@@ -1861,9 +2219,16 @@ def main():
              **k4),
         dict(name="alias_free_snake", route="cuda",
              source="toucan_tpu_torch/csrc/alias_free_snake.cu",
-             replaces="toucan_tpu/kernels/pallas_aliasfree.py:117", launches=launches["k5"],
-             **k5),
+             replaces="toucan_tpu/kernels/pallas_aliasfree.py:117",
+             launches=launches["k5"] - launches["k5_bf16"], **k5),
+        dict(name="alias_free_snake_bf16", route="cuda",
+             source="toucan_tpu_torch/csrc/alias_free_snake.cu",
+             replaces="toucan_tpu/kernels/pallas_aliasfree.py:117",
+             launches=launches["k5_bf16"], **k5_bf16),
     ]
+    for row in kernels:
+        if not row["launches"]:
+            raise AssertionError(f"{row['name']} was not launched on the main path")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

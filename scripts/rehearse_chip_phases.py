@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Rehearse ``chip_smoke.py``'s cloning and slider phases on the CPU.
+"""Rehearse ``chip_smoke.py``'s later phases on the CPU.
 
-Runs ``phase_clone`` and ``phase_controllable`` on tiny models (the tiny
-ToucanTTS of the port's tests, a 64-channel HiFiGAN, an aligner of conv 64
-and BiLSTM 32, 2000 PCA samples) with the kernels' plain versions, so that
-a wrong path, argument or shape shows before the card is asked.  Launch
-counts are not checked (on the CPU every count stays 0), and every time it
-prints is the CPU's, not the card's.
+Runs ``phase_clone``, ``phase_controllable``, ``phase_main_bf16`` (HiFiGAN
+and BigVGAN), ``phase_precision`` and ``phase_fastspeech2`` on tiny models
+(the tiny ToucanTTS of the port's tests, 64-channel vocoders, an aligner of
+conv 64 and BiLSTM 32, 2000 PCA samples, ``fastspeech2_config`` at one
+block a side) with the kernels' plain versions, so that a wrong path,
+argument or shape shows before the card is asked.  Launch counts are not
+checked (on the CPU every count stays 0), no graph is replayed, and every
+time it prints is the CPU's, not the card's.
 
     python3 scripts/rehearse_chip_phases.py
 """
@@ -20,10 +22,13 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
-from toucan_tpu_torch.infer.interface import ToucanTTSInterface  # noqa: E402
+from toucan_tpu_torch import load  # noqa: E402
+from toucan_tpu_torch.infer.interface import VOCODERS, ToucanTTSInterface  # noqa: E402
 from toucan_tpu_torch.models.aligner import Aligner  # noqa: E402
 from toucan_tpu_torch.models.embedding_gan import GanWrapper  # noqa: E402
-from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig  # noqa: E402
+from toucan_tpu_torch.models.toucan_tts import (ToucanTTS, ToucanTTSConfig,  # noqa: E402
+                                                fastspeech2_config)
+from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN  # noqa: E402
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator  # noqa: E402
 
 TINY = ToucanTTSConfig(adim=32, aheads=2, enc_layers=1, enc_units=64, dec_layers=1, dec_units=64,
@@ -41,14 +46,40 @@ def main():
     torch.manual_seed(chip_smoke.SEED)
     tts_sd = ToucanTTS(TINY).state_dict()
     voc_sd = HiFiGANGenerator(channels=64).state_dict()
-    make = lambda: ToucanTTSInterface(tts_sd, voc_sd, config=TINY,
-                                      vocoder=HiFiGANGenerator(channels=64), device="cpu",
-                                      seed=chip_smoke.SEED)
-    iface, cpu = make(), make()
     launches = dict.fromkeys(chip_smoke.WRAPPERS, 0)
+
+    # the serving phases build full-width interfaces: here tiny ones on the CPU
+    def tiny_interface(tts_sd, voc_sd, vocoder="hifigan", config=None, device=None, dtype=None,
+                       **kw):
+        if isinstance(vocoder, str):
+            vocoder = VOCODERS[vocoder](channels=64, dtype=dtype or torch.float32)
+        return ToucanTTSInterface(tts_sd, voc_sd, config=config or TINY, vocoder=vocoder,
+                                  device="cpu", dtype=dtype, **kw)
+    chip_smoke.ToucanTTSInterface = tiny_interface
+    chip_smoke.replay_ms = lambda bucket: 0.0
+    chip_smoke.fastspeech2_config = lambda: fastspeech2_config(enc_layers=1, dec_layers=1)
+    chip_smoke.HiFiGANGenerator = lambda: HiFiGANGenerator(channels=64)
+    chip_smoke.interface_from_torch = lambda *a, **k: load.interface_from_torch(
+        *a, **{**k, "device": "cpu"})
+    big_sd = BigVGAN(channels=64).state_dict()
+    # the phases synthesize from predicted durations, which the tiny model's
+    # init puts at about 0 frames a phone: here about 3
+    tts_sd = dict(tts_sd, **{"duration_predictor.linear.bias": torch.tensor([1.5])})
+    iface, cpu = (tiny_interface(tts_sd, voc_sd, HiFiGANGenerator(channels=64),
+                                 seed=chip_smoke.SEED) for _ in range(2))
     for name, phase in (("clone", lambda: chip_smoke.phase_clone(iface, cpu, launches, "CPU")),
                         ("controllable",
-                         lambda: chip_smoke.phase_controllable(iface, launches, "CPU"))):
+                         lambda: chip_smoke.phase_controllable(iface, launches, "CPU")),
+                        ("main_bf16 (hifigan)", lambda: chip_smoke.phase_main_bf16(
+                            "bf16 hifigan", iface, cpu, "hifigan", tts_sd, voc_sd,
+                            chip_smoke.BF16_HIFIGAN, launches, "CPU")),
+                        ("main_bf16 (bigvgan)", lambda: chip_smoke.phase_main_bf16(
+                            "bf16 bigvgan", tiny_interface(tts_sd, big_sd, "bigvgan"),
+                            tiny_interface(tts_sd, big_sd, "bigvgan"), "bigvgan", tts_sd, big_sd,
+                            chip_smoke.BF16_BIGVGAN, launches, "CPU")),
+                        ("precision", lambda: chip_smoke.phase_precision(
+                            tts_sd, voc_sd, iface, launches, "CPU")),
+                        ("fastspeech2", lambda: chip_smoke.phase_fastspeech2(launches, "CPU"))):
         t0 = time.perf_counter()
         phase()
         print(f"rehearsal: phase_{name} passed in {time.perf_counter() - t0:.1f} s (CPU)")

@@ -278,7 +278,7 @@ def test_capture_holds_the_position_tables_it_reads(monkeypatch):
     want = table.clone()
     for length in range(8, 48):
         rel_positional_encoding(torch.zeros(1, length, 16), 16)
-    assert _cached_table(7, 16, x.device) is not table   # evicted, rebuilt
+    assert _cached_table(7, 16, x.device, x.dtype) is not table   # evicted, rebuilt
     assert len(tally.held) == 1 and tally.held[0] is table
     assert torch.equal(tally.held[0], want)
 

@@ -167,19 +167,28 @@ def test_entry_point_raises_without_card(monkeypatch):
         ToucanTTSInterface({}, {}, config=ToucanTTSConfig(**TINY))
 
 
-@pytest.mark.parametrize("cudnn_tf32,matmul_tf32", [(True, True), (True, False),
-                                                    (False, True), (False, False)])
-def test_call_runs_f32_and_restores_tf32_flags(pair, cudnn_tf32, matmul_tf32):
-    """``__call__`` runs its convs and matmuls in f32 whatever the caller's
-    TF32 flags (PyTorch's default turns TF32 on for cuDNN convs), and
-    leaves the flags as it found them."""
+@pytest.mark.parametrize("cudnn_tf32,matmul_tf32,policy", [
+    pytest.param(cudnn_tf32, matmul_tf32, policy,
+                 id="-".join(([] if policy is None else [policy])
+                             + [str(cudnn_tf32), str(matmul_tf32)]))
+    for policy in (None, "default")
+    for cudnn_tf32, matmul_tf32 in ((True, True), (True, False), (False, True), (False, False))])
+def test_call_runs_f32_and_restores_tf32_flags(pair, cudnn_tf32, matmul_tf32, policy):
+    """``__call__`` runs its convs and matmuls under the interface's
+    ``matmul_precision`` whatever the caller's TF32 flags (PyTorch's default
+    turns TF32 on for cuDNN convs): in f32 by default (``policy`` None, the
+    interface as built), with TF32 on under "default"; and leaves the flags
+    as it found them."""
     _, port = pair
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     before = cudnn.allow_tf32, matmul.allow_tf32
+    inside = (False, False) if policy is None else (True, True)
     seen = []
     hook = port.vocoder.register_forward_pre_hook(
         lambda *_: seen.append((cudnn.allow_tf32, matmul.allow_tf32)))
     try:
+        if policy is not None:
+            port.matmul_precision = policy
         cudnn.allow_tf32, matmul.allow_tf32 = cudnn_tf32, matmul_tf32
         port(IPA, input_is_phones=True)
         assert (cudnn.allow_tf32, matmul.allow_tf32) == (cudnn_tf32, matmul_tf32)
@@ -189,7 +198,8 @@ def test_call_runs_f32_and_restores_tf32_flags(pair, cudnn_tf32, matmul_tf32):
     finally:
         hook.remove()
         cudnn.allow_tf32, matmul.allow_tf32 = before
-    assert seen == [(False, False)]
+        port.matmul_precision = "float32"
+    assert seen == [inside]
 
 
 def test_call_pins_ieee_under_the_newer_precision_api(pair):

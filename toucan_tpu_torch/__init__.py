@@ -6,7 +6,7 @@ package mirrors its layout and imports neither JAX nor anything of
 
   frontend   text -> articulatory features (host Python, copied verbatim),
              audio front end, the numpy F0 tracker
-  native     host C++ through ctypes (the F0 tracker)
+  native     host C++ through ctypes (the F0 tracker, the resampler)
   data       prosody extraction from an alignment (durations, pitch, energy)
   nn         PyTorch modules (conformer, predictors, glow, ...)
   kernels    wrappers of the hand-written CUDA kernels, each with its plain
@@ -17,8 +17,10 @@ package mirrors its layout and imports neither JAX nor anything of
              slider interface
   weights    state dicts from the JAX package's variables
   load       state dicts from the reference's checkpoint files
+  run        the serving scripts (``python -m toucan_tpu_torch.run.<name>``)
 
-Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``, in
+f32 unless asked for ``dtype=torch.bfloat16`` or ``matmul_precision="default"``.
 """
 
 __version__ = "0.1.0"

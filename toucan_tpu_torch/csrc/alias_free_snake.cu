@@ -53,7 +53,20 @@
 //
 // Layout: x and z are (B, C, T) contiguous, time innermost, as the BigVGAN
 // convs leave them.
+//
+// bf16 (alias_free_snake_bf16).  Under the JAX package's dtype=bfloat16 the
+// Pallas kernel streams bf16 in and out, computes in f32, and takes e^alpha
+// and 1 / (e^beta + 1e-9) rounded to x's dtype (kernels/pallas_aliasfree.py:
+// 55-58, 115, 136-137).  The same kernel, templated on the element type,
+// does that: x is widened to f32 as it is loaded, e^alpha and the inverse
+// are rounded to bf16 and back, every sum and snake runs in f32, and each
+// output is rounded to bf16 once as it is stored.  The work is bytes-bound
+// at either width, and bf16 halves them (4 bytes an output): a lane's 8
+// samples are one 16-byte load and one 16-byte store, where the row is
+// 16-byte aligned (T % 8 == 0).  The polyphase, warp-run and halo design is
+// the f32 kernel's.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -98,6 +111,28 @@ __device__ __forceinline__ float sine(float v) {
     return sinf(v);
 }
 
+// x as f32, from f32 or from bf16 (its 16 bits are the high half of an f32)
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const uint16_t* p) {
+  return __uint_as_float((uint32_t)__ldg(p) << 16);
+}
+__device__ __forceinline__ float widen(uint32_t pair, int hi) {
+  return __uint_as_float(hi ? pair & 0xffff0000u : pair << 16);
+}
+__device__ __forceinline__ void st(float* p, float v) { *p = v; }
+__device__ __forceinline__ uint16_t to_bf16(float v) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+__device__ __forceinline__ void st(uint16_t* p, float v) { *p = to_bf16(v); }
+// v as the element type holds it: unchanged for f32, rounded to bf16
+template <typename Elem>
+__device__ __forceinline__ float as_stored(float v) {
+  if constexpr (sizeof(Elem) == 2)
+    return __uint_as_float((uint32_t)to_bf16(v) << 16);
+  else
+    return v;
+}
+
 __device__ __forceinline__ float snake(float y, float a, float ib) {
   const float sn = sine(a * y);
   return fmaf(ib, sn * sn, y);
@@ -119,7 +154,8 @@ __device__ __forceinline__ float snake_chunk(float y, float a, float ib, bool& b
 // One snake sample of the 2x signal at v (odd: branch s_o), edges as the
 // reference pads them; x read by scalar loads.  The sum runs over the same
 // taps in the same order as the chunk path's, so the two agree bit for bit.
-__device__ float snake_at(const float* __restrict__ xr, int T, int v, bool odd, float a,
+template <typename Elem>
+__device__ float snake_at(const Elem* __restrict__ xr, int T, int v, bool odd, float a,
                           float ib, const Taps& k) {
   if (v < 0) {
     v = 0;
@@ -132,7 +168,7 @@ __device__ float snake_at(const float* __restrict__ xr, int T, int v, bool odd, 
   float y = 0.f;
 #pragma unroll
   for (int p = 0; p < 7; ++p)
-    y = fmaf(odd ? k.up1[p] : k.up0[p], __ldg(xr + min(max(v + p - 3, 0), T - 1)), y);
+    y = fmaf(odd ? k.up1[p] : k.up0[p], ld(xr + min(max(v + p - 3, 0), T - 1)), y);
   return snake(y, a, ib);
 }
 
@@ -168,8 +204,22 @@ __device__ __forceinline__ float from_right(float cur, float next, int lane) {
   }
 }
 
-// x at p .. p + 7, clamped to T - 1; float4 where `vec` (the row 16-byte
-// aligned and T % 4 == 0) and the four lie inside the row.
+// x at p .. p + 7, clamped to T - 1; 16-byte loads where `vec` (the row
+// 16-byte aligned and T a multiple of a load's elements) and they lie
+// inside the row: two float4 of f32, one of 8 bf16.
+__device__ __forceinline__ void load8(float (&v)[PER_LANE], const uint16_t* __restrict__ xr,
+                                      int p, int T, bool vec) {
+  if (vec && p + 7 < T) {
+    const uint4 f = __ldg(reinterpret_cast<const uint4*>(xr + p));
+    const uint32_t w[4] = {f.x, f.y, f.z, f.w};
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j) v[j] = widen(w[j / 2], j & 1);
+  } else {
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j) v[j] = ld(xr + min(p + j, T - 1));
+  }
+}
+
 __device__ __forceinline__ void load8(float (&v)[PER_LANE], const float* __restrict__ xr, int p,
                                       int T, bool vec) {
 #pragma unroll
@@ -189,10 +239,26 @@ __device__ __forceinline__ void load8(float (&v)[PER_LANE], const float* __restr
 }
 
 // x at e .. e + 2, clamped, in v[0..2]: the right halo of a run's last chunk.
-__device__ __forceinline__ void load_tail(float (&v)[PER_LANE], const float* __restrict__ xr,
-                                          int e, int T) {
+template <typename Elem>
+__device__ __forceinline__ void load_tail(float (&v)[PER_LANE], const Elem* __restrict__ xr, int e,
+                                          int T) {
 #pragma unroll
-  for (int j = 0; j < PER_LANE; ++j) v[j] = j < 3 ? __ldg(xr + min(e + j, T - 1)) : 0.f;
+  for (int j = 0; j < PER_LANE; ++j) v[j] = j < 3 ? ld(xr + min(e + j, T - 1)) : 0.f;
+}
+
+__device__ __forceinline__ void store8(const float (&v)[PER_LANE], uint16_t* __restrict__ zr,
+                                       int p, int T, bool vec) {
+  if (vec && p + 7 < T) {
+    uint32_t w[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      w[j] = (uint32_t)to_bf16(v[2 * j]) | ((uint32_t)to_bf16(v[2 * j + 1]) << 16);
+    *reinterpret_cast<uint4*>(zr + p) = make_uint4(w[0], w[1], w[2], w[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < PER_LANE; ++j)
+      if (p + j < T) st(zr + p + j, v[j]);
+  }
 }
 
 __device__ __forceinline__ void store8(const float (&v)[PER_LANE], float* __restrict__ zr, int p,
@@ -211,9 +277,10 @@ __device__ __forceinline__ void store8(const float (&v)[PER_LANE], float* __rest
   }
 }
 
+template <typename Elem>
 __global__ void __launch_bounds__(NT, MIN_BLOCKS) alias_free_snake_kernel(
-    const float* __restrict__ x, const float* __restrict__ alpha,
-    const float* __restrict__ beta, float* __restrict__ z, const Taps k, const Geometry g) {
+    const Elem* __restrict__ x, const Elem* __restrict__ alpha, const Elem* __restrict__ beta,
+    Elem* __restrict__ z, const Taps k, const Geometry g) {
   const int lane = threadIdx.x & 31;
   const int n_warps = gridDim.x * WARPS;
   const int T = g.T;
@@ -222,10 +289,10 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) alias_free_snake_kernel(
     const int row = item / g.segs_per_row;
     const int seg = item - row * g.segs_per_row;
     const int ch = row % g.C;
-    const float a = expf(alpha[ch]);
-    const float ib = 1.f / (expf(beta[ch]) + EPS);
-    const float* xr = x + (size_t)row * T;
-    float* zr = z + (size_t)row * T;
+    const float a = as_stored<Elem>(expf(ld(alpha + ch)));
+    const float ib = as_stored<Elem>(1.f / (expf(ld(beta + ch)) + EPS));
+    const Elem* xr = x + (size_t)row * T;
+    Elem* zr = z + (size_t)row * T;
     const int S = seg * g.seg_chunks * CHUNK;                 // the run's first sample
     const int nch = min(g.seg_chunks, (T - S + CHUNK - 1) / CHUNK);
     const int E = S + nch * CHUNK;                            // past its last chunk
@@ -234,7 +301,7 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) alias_free_snake_kernel(
     // (one snake a lane), held by every lane and read from lane 31
     float xl[3], sp[5];
 #pragma unroll
-    for (int j = 0; j < 3; ++j) xl[j] = __ldg(xr + max(S - 3 + j, 0));
+    for (int j = 0; j < 3; ++j) xl[j] = ld(xr + max(S - 3 + j, 0));
     {
       const float h =
           lane < 5 ? snake_at(xr, T, lane < 2 ? S - 2 + lane : S - 5 + lane, lane >= 2, a, ib, k)
@@ -365,13 +432,11 @@ __global__ void __launch_bounds__(NT, MIN_BLOCKS) alias_free_snake_kernel(
 
 }  // namespace
 
-// x, z (B, C, T) f32 contiguous; alpha, beta (C,) log-scale SnakeBeta
-// parameters; taps the four 7-tap phase filters (up0, up1, dn_even, dn_odd)
-// in host memory.  Runs of seg_chunks chunks of 256 samples, walked by
-// blocks x 4 warps in turn; vector: x 16-byte aligned and T % 4 == 0.
-extern "C" int alias_free_snake_f32(const void* x, const void* alpha, const void* beta, void* z,
-                                    const float* taps, int B, int T, int C, int seg_chunks,
-                                    int blocks, int vector, void* stream) {
+namespace {
+
+template <typename Elem>
+int launch(const void* x, const void* alpha, const void* beta, void* z, const float* taps, int B,
+           int T, int C, int seg_chunks, int blocks, int vector, void* stream) {
   if (B <= 0 || T <= 0 || C <= 0 || seg_chunks <= 0 || blocks <= 0)
     return (int)cudaErrorInvalidValue;
   const long long cpr = (T + (long long)CHUNK - 1) / CHUNK;
@@ -379,7 +444,7 @@ extern "C" int alias_free_snake_f32(const void* x, const void* alpha, const void
   const long long items = (long long)B * C * segs;
   if (items > 0x7fffffffLL || (long long)seg_chunks * CHUNK > 0x7fffffffLL - T)
     return (int)cudaErrorInvalidValue;
-  if (vector && (T % 4 != 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
+  if (vector && (T % (16 / (int)sizeof(Elem)) != 0 || reinterpret_cast<uintptr_t>(x) % 16 ||
                  reinterpret_cast<uintptr_t>(z) % 16))
     return (int)cudaErrorInvalidValue;
   Taps k;
@@ -390,16 +455,39 @@ extern "C" int alias_free_snake_f32(const void* x, const void* alpha, const void
     k.dn_odd[p] = taps[21 + p];
   }
   const Geometry g{T, C, (int)items, (int)segs, seg_chunks, vector};
-  alias_free_snake_kernel<<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(alpha),
-      static_cast<const float*>(beta), static_cast<float*>(z), k, g);
+  alias_free_snake_kernel<Elem><<<blocks, NT, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const Elem*>(x), static_cast<const Elem*>(alpha),
+      static_cast<const Elem*>(beta), static_cast<Elem*>(z), k, g);
   return (int)cudaGetLastError();
 }
 
-// Blocks of the kernel the current device runs at once on one SM.
-extern "C" int alias_free_snake_blocks_per_sm(void* n) {
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(static_cast<int*>(n),
-                                                            alias_free_snake_kernel, NT, 0);
+}  // namespace
+
+// x, z (B, C, T) contiguous; alpha, beta (C,) log-scale SnakeBeta
+// parameters, of x's type (f32, or bf16 for the _bf16 entry); taps the
+// four 7-tap phase filters (up0, up1, dn_even, dn_odd) in host memory.
+// Runs of seg_chunks chunks of 256 samples, walked by blocks x 4 warps in
+// turn; vector: x and z 16-byte aligned and T a multiple of 4 (f32) or 8
+// (bf16).
+extern "C" int alias_free_snake_f32(const void* x, const void* alpha, const void* beta, void* z,
+                                    const float* taps, int B, int T, int C, int seg_chunks,
+                                    int blocks, int vector, void* stream) {
+  return launch<float>(x, alpha, beta, z, taps, B, T, C, seg_chunks, blocks, vector, stream);
+}
+
+extern "C" int alias_free_snake_bf16(const void* x, const void* alpha, const void* beta, void* z,
+                                     const float* taps, int B, int T, int C, int seg_chunks,
+                                     int blocks, int vector, void* stream) {
+  return launch<uint16_t>(x, alpha, beta, z, taps, B, T, C, seg_chunks, blocks, vector, stream);
+}
+
+// Blocks of the kernel (bf16: of its bf16 instantiation) the current
+// device runs at once on one SM.
+extern "C" int alias_free_snake_blocks_per_sm(void* n, int bf16) {
+  return (int)(bf16 ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          static_cast<int*>(n), alias_free_snake_kernel<uint16_t>, NT, 0)
+                    : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                          static_cast<int*>(n), alias_free_snake_kernel<float>, NT, 0));
 }
 
 extern "C" const char* toucan_error_string(int err) {

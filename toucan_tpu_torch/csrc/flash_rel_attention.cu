@@ -62,7 +62,27 @@
 // fragments would not fit in registers, so each key tile splits them from
 // shared memory again; at d = 128 the staging buffers would pass 227 KB,
 // so there is one, and a tile's loads no longer overlap the one before.
+//
+// bf16 inputs (flash_rel_attention_bf16).  Under the JAX package's
+// dtype=bfloat16 the Pallas kernel takes bf16 q_u, q_v, k, v and p, upcasts
+// them to f32 and returns f32 (kernels/pallas_attention.py:67-74); so does
+// this instantiation.  A product of two bf16 values is exact in f32, so
+// q_u . k^T and q_v . p_window^T need no split: one bf16 mma.sync
+// (m16n8k16, f32 sums) each, as the JAX kernel computes them up to the
+// order of the sums.  P is f32 (the softmax runs in f32 as in the f32
+// kernel), and rounding it to bf16 would part from JAX by 2^-9 of each
+// probability.  P . V takes P as its bf16 high and low parts, P = hi + lo
+// + r with |r| <= 2^-18 |P|, in two bf16 products on the bf16 V, which is
+// exact; this rather than the split-TF32 P . V on an upcast V because the
+// score accumulators of two 8-key tiles are the m16n8k16 A fragment as they
+// lie (no permutation), and two bf16 products of k = 16 cost a quarter of
+// the tensor-core time of two TF32 products of k = 8 over the same keys.
+// Staged rows are d + 8 bf16 (d / 2 + 4 words: conflict-free fragment
+// loads), half the f32 kernel's bytes, so two staging buffers fit at every
+// d; the q fragments are read from shared memory at each tile (one 32-bit
+// load per register, no split to keep).
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -100,7 +120,7 @@ constexpr size_t smem_floats() {
          (size_t)NW * 16 * BDP;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0));
@@ -153,16 +173,77 @@ __device__ __forceinline__ void load_bt(const float* s, int ld, int n0, int k0, 
   split_tf32(s[(n0 + g) * ld + k0 + t + 4], bb[1], bs[1]);
 }
 
-// Stage rows [r0, r0 + n) of a (rows x D) matrix into s (stride D + 4);
-// rows outside [0, rows) are zero-filled.
-template <int D>
-__device__ __forceinline__ void stage_rows(float* s, const float* g, int r0, int n, int rows) {
-  constexpr int CH = D / 4;  // 16-byte chunks per row
+// Stage rows [r0, r0 + n) of a (rows x D) matrix of E into s (row stride
+// LD elements); rows outside [0, rows) are zero-filled.
+template <int D, int LD, typename E>
+__device__ __forceinline__ void stage_rows(E* s, const E* g, int r0, int n, int rows) {
+  constexpr int EPC = 16 / sizeof(E);  // elements per 16-byte chunk
+  constexpr int CH = D / EPC;          // chunks per row
   for (int idx = threadIdx.x; idx < n * CH; idx += NT) {
-    const int r = idx / CH, c = (idx - r * CH) * 4;
+    const int r = idx / CH, c = (idx - r * CH) * EPC;
     const int gr = r0 + r;
     const bool ok = gr >= 0 && gr < rows;
-    cp_async16(s + r * dp<D>() + c, g + (size_t)(ok ? gr : 0) * D + c, ok);
+    cp_async16(s + r * LD + c, g + (size_t)(ok ? gr : 0) * D + c, ok);
+  }
+}
+
+// The online softmax over one key tile's scores sc (rows g: e = 0, 1; g + 8:
+// e = 2, 3; key j0 + n * 8 + 2t + (e & 1)): masks keys >= len, scales, and
+// leaves exp(s - m) in sc, the running maxima in m_row, the running sums of
+// the thread's keys in l_part, and the factor for the output so far in alpha.
+template <int NS>
+__device__ __forceinline__ void online_softmax(float (&sc)[NS][4], int j0, int t, int len,
+                                               float scale, float (&m_row)[2],
+                                               float (&l_part)[2], float (&alpha)[2]) {
+  float rmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + n * 8 + 2 * t + (e & 1);
+      const float s = j < len ? sc[n][e] * scale : -INFINITY;
+      sc[n][e] = s;
+      rmax[e >> 1] = fmaxf(rmax[e >> 1], s);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
+    rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
+    // key j0 < len is valid, so the row maximum and m_new are finite
+    const float m_new = fmaxf(m_row[r], rmax[r]);
+    alpha[r] = expf(m_row[r] - m_new);
+    m_row[r] = m_new;
+    l_part[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = expf(sc[n][e] - m_row[e >> 1]);
+      sc[n][e] = pe;
+      l_part[e >> 1] += pe;
+    }
+}
+
+// The warp's 16 output rows from row0 on, o / l; rows past T are left out.
+template <int D>
+__device__ __forceinline__ void write_rows(float* o_bh, const float (&o)[D / 8][4],
+                                           float (&l_part)[2], int row0, int g, int t, int T) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 1);
+    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 2);
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int gi = row0 + g + 8 * r;
+    if (gi < T) {
+      const float inv = l_part[r] > 0.f ? 1.f / l_part[r] : 0.f;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(o_bh + (size_t)gi * D + n * 8 + 2 * t) =
+            make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    }
   }
 }
 
@@ -216,14 +297,14 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
   auto stage_tile = [&](int kt) {
     float* s = s_stage + (kt % NBUF) * STAGE;
     const int j0 = kt * BK;
-    stage_rows<D>(s, kg + base, j0, BK, T);
-    stage_rows<D>(s + BK * DP, vg + base, j0, BK, T);
-    stage_rows<D>(s + 2 * BK * DP, p_h, T - BQ - i0 + j0, NPW, 2 * T - 1);
+    stage_rows<D, DP>(s, kg + base, j0, BK, T);
+    stage_rows<D, DP>(s + BK * DP, vg + base, j0, BK, T);
+    stage_rows<D, DP>(s + 2 * BK * DP, p_h, T - BQ - i0 + j0, NPW, 2 * T - 1);
   };
 
   if (n_kt > 0) {
-    stage_rows<D>(s_qu, qu + base, i0, BQ, T);
-    stage_rows<D>(s_qv, qv + base, i0, BQ, T);
+    stage_rows<D, DP>(s_qu, qu + base, i0, BQ, T);
+    stage_rows<D, DP>(s_qv, qv + base, i0, BQ, T);
     stage_tile(0);
     cp_async_commit();
   }
@@ -311,37 +392,9 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
       }
     }
 
-    // online softmax over this tile's keys; rows g (e = 0, 1) and g + 8 (e = 2, 3)
-    const int j0 = kt * BK;
-    float rmax[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = j0 + n * 8 + 2 * t + (e & 1);
-        const float s = j < len ? sc[n][e] * scale : -INFINITY;
-        sc[n][e] = s;
-        rmax[e >> 1] = fmaxf(rmax[e >> 1], s);
-      }
+    // online softmax over this tile's keys
     float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 1));
-      rmax[r] = fmaxf(rmax[r], __shfl_xor_sync(0xffffffffu, rmax[r], 2));
-      // key j0 < len is valid, so the row maximum and m_new are finite
-      const float m_new = fmaxf(m_row[r], rmax[r]);
-      alpha[r] = expf(m_row[r] - m_new);
-      m_row[r] = m_new;
-      l_part[r] *= alpha[r];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float pe = expf(sc[n][e] - m_row[e >> 1]);
-        sc[n][e] = pe;
-        l_part[e >> 1] += pe;
-      }
+    online_softmax<NS>(sc, kt * BK, t, len, scale, m_row, l_part, alpha);
 
     // O = alpha O + P . V; A column t is key 2t and column t + 4 is key
     // 2t + 1; the tile's P . V is summed apart, then added in f32
@@ -373,23 +426,7 @@ __global__ void __launch_bounds__(NT) flash_rel_kernel(
     __syncthreads();  // this buffer is restaged two tiles on
   }
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 1);
-    l_part[r] += __shfl_xor_sync(0xffffffffu, l_part[r], 2);
-  }
-  float* o_bh = out + base;
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int gi = i0 + rw + g + 8 * r;
-    if (gi < T) {
-      const float inv = l_part[r] > 0.f ? 1.f / l_part[r] : 0.f;
-#pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<float2*>(o_bh + (size_t)gi * D + n * 8 + 2 * t) =
-            make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
-    }
-  }
+  write_rows<D>(out + base, o, l_part, i0 + rw, g, t, T);
 }
 
 template <int D>
@@ -402,6 +439,233 @@ cudaError_t launch(const float* qu, const float* qv, const float* k, const float
   if (err != cudaSuccess) return err;
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   flash_rel_kernel<D><<<grid, NT, smem, stream>>>(qu, qv, k, v, p, lengths, out, H, T, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------- bf16 inputs
+
+// x = hi + lo, both bf16 (round to nearest), for a pair of values (low half:
+// the first); the pair's hi and lo parts packed as one A-fragment register each
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat16 h0 = __float2bfloat16_rn(x0), h1 = __float2bfloat16_rn(x1);
+  const __nv_bfloat16 l0 = __float2bfloat16_rn(x0 - __bfloat162float(h0));
+  const __nv_bfloat16 l1 = __float2bfloat16_rn(x1 - __bfloat162float(h1));
+  hi = (uint32_t)__bfloat16_as_ushort(h0) | ((uint32_t)__bfloat16_as_ushort(h1) << 16);
+  lo = (uint32_t)__bfloat16_as_ushort(l0) | ((uint32_t)__bfloat16_as_ushort(l1) << 16);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld_pair(const uint16_t* s) {
+  return *reinterpret_cast<const uint32_t*>(s);
+}
+
+// A fragment (16 x 16, row major) of rows r0.., columns k0.. of a staged
+// bf16 matrix with row stride ld
+__device__ __forceinline__ void load_a16(const uint16_t* s, int ld, int r0, int k0, int g, int t,
+                                         uint32_t (&a)[4]) {
+  a[0] = ld_pair(s + (r0 + g) * ld + k0 + 2 * t);
+  a[1] = ld_pair(s + (r0 + g + 8) * ld + k0 + 2 * t);
+  a[2] = ld_pair(s + (r0 + g) * ld + k0 + 2 * t + 8);
+  a[3] = ld_pair(s + (r0 + g + 8) * ld + k0 + 2 * t + 8);
+}
+
+// B fragment (16 x 8, column major) of b[k][n] = s[n0 + n][k0 + k]
+__device__ __forceinline__ void load_bt16(const uint16_t* s, int ld, int n0, int k0, int g,
+                                          int t, uint32_t (&b)[2]) {
+  b[0] = ld_pair(s + (n0 + g) * ld + k0 + 2 * t);
+  b[1] = ld_pair(s + (n0 + g) * ld + k0 + 2 * t + 8);
+}
+
+// bf16 elements per staged row: d + 8, so that a fragment's 32 lanes read
+// 32 distinct banks (the row is (d + 8) / 2 = 4 mod 8 words)
+template <int D>
+__host__ __device__ constexpr int dpb() { return D + 8; }
+
+template <int D>
+constexpr size_t smem_bytes_bf16() {
+  return (size_t)NW * 16 * BDP * sizeof(float) +
+         ((size_t)2 * BQ + 2 * (size_t)(2 * BK + NPW)) * dpb<D>() * sizeof(uint16_t);
+}
+
+// The f32 kernel's tiling, softmax and rel-shift, on bf16 operands: q_u . k^T
+// and q_v . p^T as bf16 products (m16n8k16, f32 sums), P . V as two bf16
+// products of P's high and low parts (see the header).
+template <int D>
+__global__ void __launch_bounds__(NT) flash_rel_bf16_kernel(
+    const uint16_t* __restrict__ qu, const uint16_t* __restrict__ qv,
+    const uint16_t* __restrict__ kg, const uint16_t* __restrict__ vg,
+    const uint16_t* __restrict__ pg, const int* __restrict__ lengths,
+    float* __restrict__ out, int H, int T, float scale) {
+  static_assert(D % 16 == 0, "head dim must be a multiple of 16");
+  constexpr int LD = dpb<D>();
+  constexpr int KD = D / 16;  // k-steps over the head dim
+  constexpr int NO = D / 8;   // n-tiles of the output
+  constexpr int NS = BK / 8;  // n-tiles of the score tile
+  constexpr int NB = BDC / 8; // n-tiles of BD
+  constexpr int STAGE = (2 * BK + NPW) * LD;
+
+  extern __shared__ float4 smem4[];
+  float* s_bd_all = reinterpret_cast<float*>(smem4);
+  uint16_t* s_qu = reinterpret_cast<uint16_t*>(s_bd_all + NW * 16 * BDP);
+  uint16_t* s_qv = s_qu + BQ * LD;
+  uint16_t* s_stage = s_qv + BQ * LD;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int i0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t base = ((size_t)b * H + h) * (size_t)T * D;
+  const uint16_t* p_h = pg + (size_t)h * (2 * T - 1) * D;
+  float* s_bd = s_bd_all + warp * 16 * BDP;
+  const int rw = warp * 16;
+  const int pb = BQ - 16 - rw;
+  const int len = min(max(lengths[b], 0), T);
+  const int n_kt = (len + BK - 1) / BK;
+
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m_row[2] = {-INFINITY, -INFINITY};
+  float l_part[2] = {0.f, 0.f};
+
+  auto stage_tile = [&](int kt) {
+    uint16_t* s = s_stage + (kt & 1) * STAGE;
+    const int j0 = kt * BK;
+    stage_rows<D, LD>(s, kg + base, j0, BK, T);
+    stage_rows<D, LD>(s + BK * LD, vg + base, j0, BK, T);
+    stage_rows<D, LD>(s + 2 * BK * LD, p_h, T - BQ - i0 + j0, NPW, 2 * T - 1);
+  };
+
+  if (n_kt > 0) {
+    stage_rows<D, LD>(s_qu, qu + base, i0, BQ, T);
+    stage_rows<D, LD>(s_qv, qv + base, i0, BQ, T);
+    stage_tile(0);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < n_kt; ++kt) {
+    if (kt + 1 < n_kt) {
+      stage_tile(kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const uint16_t* s_k = s_stage + (kt & 1) * STAGE;
+    const uint16_t* s_v = s_k + BK * LD;
+    const uint16_t* s_p = s_v + BK * LD;
+
+    // BD = q_v . p_rows^T for the warp's 16 rows and p rows pb .. pb + 47
+    float bd[NB][4];
+#pragma unroll
+    for (int n = 0; n < NB; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) bd[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      load_a16(s_qv, LD, rw, kk * 16, g, t, a);
+#pragma unroll
+      for (int n = 0; n < NB; ++n) {
+        uint32_t bb[2];
+        load_bt16(s_p, LD, pb + n * 8, kk * 16, g, t, bb);
+        mma_bf16(bd[n], a, bb);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NB; ++n) {
+      *reinterpret_cast<float2*>(s_bd + g * BDP + n * 8 + 2 * t) = make_float2(bd[n][0], bd[n][1]);
+      *reinterpret_cast<float2*>(s_bd + (g + 8) * BDP + n * 8 + 2 * t) =
+          make_float2(bd[n][2], bd[n][3]);
+    }
+    __syncwarp();
+
+    // scores start from the skewed bias: S[r, c] = BD[r, 15 - r + c]
+    float sc[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      const int c = n * 8 + 2 * t;
+      sc[n][0] = s_bd[g * BDP + 15 - g + c];
+      sc[n][1] = s_bd[g * BDP + 16 - g + c];
+      sc[n][2] = s_bd[(g + 8) * BDP + 7 - g + c];
+      sc[n][3] = s_bd[(g + 8) * BDP + 8 - g + c];
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t a[4];
+      load_a16(s_qu, LD, rw, kk * 16, g, t, a);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t bb[2];
+        load_bt16(s_k, LD, n * 8, kk * 16, g, t, bb);
+        mma_bf16(sc[n], a, bb);
+      }
+    }
+
+    float alpha[2];
+    online_softmax<NS>(sc, kt * BK, t, len, scale, m_row, l_part, alpha);
+
+    // O = alpha O + P . V over k-steps of 16 keys: the score fragments of
+    // key tiles 2kc and 2kc + 1 are the A fragment as they lie; P goes in
+    // as its bf16 high and low parts, low first; the tile's P . V is summed
+    // apart, then added in f32
+    float pv[NO][4];
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < NS / 2; ++kc) {
+      uint32_t ah[4], al[4];
+      split_bf16(sc[2 * kc][0], sc[2 * kc][1], ah[0], al[0]);
+      split_bf16(sc[2 * kc][2], sc[2 * kc][3], ah[1], al[1]);
+      split_bf16(sc[2 * kc + 1][0], sc[2 * kc + 1][1], ah[2], al[2]);
+      split_bf16(sc[2 * kc + 1][2], sc[2 * kc + 1][3], ah[3], al[3]);
+      const uint16_t* v0 = s_v + (kc * 16 + 2 * t) * LD + g;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        uint32_t bb[2];
+        bb[0] = (uint32_t)v0[n * 8] | ((uint32_t)v0[LD + n * 8] << 16);
+        bb[1] = (uint32_t)v0[8 * LD + n * 8] | ((uint32_t)v0[9 * LD + n * 8] << 16);
+        mma_bf16(pv[n], al, bb);
+        mma_bf16(pv[n], ah, bb);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = o[n][e] * alpha[e >> 1] + pv[n][e];
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+
+  write_rows<D>(out + base, o, l_part, i0 + rw, g, t, T);
+}
+
+template <int D>
+cudaError_t launch_bf16(const uint16_t* qu, const uint16_t* qv, const uint16_t* k,
+                        const uint16_t* v, const uint16_t* p, const int* lengths, float* out,
+                        int B, int H, int T, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes_bf16<D>();
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_rel_bf16_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((T + BQ - 1) / BQ, H, B);
+  flash_rel_bf16_kernel<D><<<grid, NT, smem, stream>>>(qu, qv, k, v, p, lengths, out, H, T,
+                                                       scale);
   return cudaGetLastError();
 }
 
@@ -428,6 +692,32 @@ extern "C" int flash_rel_attention_f32(const void* qu, const void* qv, const voi
     case 64: return (int)launch<64>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
     case 96: return (int)launch<96>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
     case 128: return (int)launch<128>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// q_u, q_v, k, v (B, H, T, D) and p (H, 2T - 1, D) bf16; out (B, H, T, D) f32.
+extern "C" int flash_rel_attention_bf16(const void* qu, const void* qv, const void* k,
+                                        const void* v, const void* p, const void* lengths,
+                                        void* out, int B, int H, int T, int D, float scale,
+                                        void* stream) {
+  if (B <= 0 || H <= 0 || T <= 0 || H > 65535 || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto* a = static_cast<const uint16_t*>(qu);
+  const auto* b = static_cast<const uint16_t*>(qv);
+  const auto* kk = static_cast<const uint16_t*>(k);
+  const auto* vv = static_cast<const uint16_t*>(v);
+  const auto* pp = static_cast<const uint16_t*>(p);
+  const auto* ll = static_cast<const int*>(lengths);
+  auto* o = static_cast<float*>(out);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return (int)launch_bf16<16>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 32: return (int)launch_bf16<32>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 48: return (int)launch_bf16<48>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 64: return (int)launch_bf16<64>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 96: return (int)launch_bf16<96>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
+    case 128: return (int)launch_bf16<128>(a, b, kk, vv, pp, ll, o, B, H, T, scale, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -6,8 +6,10 @@ runs on the tensor's device: reflect-padded frames, a periodic Hann window,
 ``torch.fft.rfft`` magnitudes and one product with the slaney mel filters.
 Loudness normalization (ITU-R BS.1770, pyloudnorm's K-weighting), the
 polyphase sinc resampler and the energy-based silence trim are host numpy,
-copied from the JAX package's module; the resampler is its numpy path (the
-native C++ one is not ported).
+copied from the JAX package's module; the resampler prefers the native C++
+one (``native.resample``) as the JAX package's does.  ``read_wav`` reads
+PCM and IEEE-float WAV files, ``read_wave`` any file as JAX's
+``data/corpus.py::read_wave`` does.
 
 Parity-critical constants: 16 kHz, n_fft 1024, hop 256, 80 mels, fmin 40,
 fmax 8000, log10, slaney mel filters, reflect padding, periodic Hann window.
@@ -16,6 +18,7 @@ fmax 8000, log10, slaney mel filters, reflect padding, periodic Hann window.
 from __future__ import annotations
 
 import math
+import os
 import wave as wave_mod
 from dataclasses import dataclass
 from functools import lru_cache
@@ -176,6 +179,22 @@ def _sinc_resample_kernel(orig_sr: int, new_sr: int, lowpass_width: int = 6,
 
 
 def resample(audio: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
+    """Polyphase sinc resampling of a mono signal.
+
+    Prefers the native C++ path (``toucan_tpu_torch.native.resample``,
+    threaded, equal to the numpy path to float32 rounding) where the host
+    has g++, as ``toucan_tpu/frontend/audio.py::resample`` does; set
+    ``TOUCAN_NATIVE_RESAMPLE=0`` for the numpy path (``resample_numpy``)."""
+    if orig_sr == new_sr:
+        return audio
+    if os.environ.get("TOUCAN_NATIVE_RESAMPLE", "1") != "0":
+        from toucan_tpu_torch import native
+        if native.native_resample_available():
+            return native.resample(audio, orig_sr, new_sr)
+    return resample_numpy(audio, orig_sr, new_sr)
+
+
+def resample_numpy(audio: np.ndarray, orig_sr: int, new_sr: int) -> np.ndarray:
     """Polyphase sinc resampling of a mono signal (numpy)."""
     if orig_sr == new_sr:
         return audio
@@ -224,11 +243,22 @@ def trim_silence(audio: np.ndarray, sr: int, frame_ms: float = 30.0,
 # ------------------------------------------------------------------ files
 
 def read_wav(path) -> tuple:
-    """(samples, sr) of a PCM WAV file with the standard library: float32 in
-    [-1, 1), (n,) for mono and (n, channels) otherwise."""
-    with wave_mod.open(str(path), "rb") as f:
-        channels, width, sr = f.getnchannels(), f.getsampwidth(), f.getframerate()
-        raw = f.readframes(f.getnframes())
+    """(samples, sr) of a WAV file: float32, (n,) for mono and (n, channels)
+    otherwise.  8- to 32-bit PCM is read with the standard library and
+    scaled to [-1, 1); IEEE float (32 or 64 bit, plain or
+    WAVE_FORMAT_EXTENSIBLE), which the standard library refuses, through
+    ``scipy.io.wavfile``, its values as they are (64-bit rounded to f32)."""
+    try:
+        with wave_mod.open(str(path), "rb") as f:
+            channels, width, sr = f.getnchannels(), f.getsampwidth(), f.getframerate()
+            raw = f.readframes(f.getnframes())
+    except wave_mod.Error:
+        from scipy.io import wavfile
+
+        sr, data = wavfile.read(str(path))
+        if data.dtype.kind != "f":
+            raise
+        return data.astype(np.float32), sr
     if width == 1:
         data = (np.frombuffer(raw, np.uint8).astype(np.float32) - 128.0) / 128.0
     elif width in (2, 4):
@@ -240,6 +270,20 @@ def read_wav(path) -> tuple:
     else:
         raise ValueError(f"{path}: {8 * width}-bit PCM is not supported")
     return (data if channels == 1 else data.reshape(-1, channels)), sr
+
+
+def read_wave(path) -> tuple:
+    """(float32 samples, sr) of an audio file, as
+    ``toucan_tpu/data/corpus.py::read_wave`` loads a reference: soundfile
+    where it is installed (any format it reads), else ``read_wav``."""
+    from toucan_tpu_torch.utils.optional import optional_import
+
+    try:
+        soundfile = optional_import("soundfile")
+    except ImportError:
+        return read_wav(path)
+    wave, sr = soundfile.read(str(path))
+    return np.asarray(wave, np.float32), sr
 
 
 # ------------------------------------------------------------ orchestrator

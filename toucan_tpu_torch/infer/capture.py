@@ -8,9 +8,11 @@ buffers that returns a tuple of tensors) and the step's outputs.
 On the card the step runs once eagerly on a side stream (the warm-up: it
 builds the kernels and fills every host-side cache, such as tilings,
 occupancy queries, prepared weights and position tables), is then captured
-into a ``torch.cuda.CUDAGraph`` inside ``f32_precision()``, so that the
-captured library kernels are f32 whatever the caller set, and is replayed
-at every call.  A capture that fails raises; nothing falls back to eager.
+into a ``torch.cuda.CUDAGraph`` inside ``matmul_precision(policy)``, so
+that the captured library kernels follow the bucket's policy (the
+interface's: "float32" unless it was asked for "default") whatever the
+caller set, and is replayed at every call.  A capture that fails raises;
+nothing falls back to eager.
 On the CPU the step runs eagerly over the same buffers at every call.
 
 A call copies its inputs into the static buffers and hands back copies of
@@ -30,17 +32,19 @@ import time
 import torch
 
 from toucan_tpu_torch.kernels import build
-from toucan_tpu_torch.utils.device import f32_precision
+from toucan_tpu_torch.utils.device import matmul_precision
 
 
 class Bucket:
-    def __init__(self, step, inputs: dict, device, pool=None):
+    def __init__(self, step, inputs: dict, device, pool=None, policy: str = "float32"):
         """``inputs``: {name: (shape, dtype) or None}, the step's keyword
         arguments (None is passed as None).  The buffers, on ``device``,
         start at zero; on the card the step is warmed up and captured on
-        them here, into the memory pool ``pool`` (None: a pool of its own)."""
+        them here, into the memory pool ``pool`` (None: a pool of its own),
+        under the precision ``policy`` (``utils.device.matmul_precision``)."""
         self.step = step
         self.device = torch.device(device)
+        self.policy = policy
         self.graph = self.tally = self.outputs = None
         self.capture_s = None          # warm-up and capture, host clock (card only)
         self.reserved_bytes = None     # memory its capture added to the pool (card only)
@@ -56,7 +60,8 @@ class Bucket:
         torch.cuda.empty_cache()   # so that the reserved bytes below are the capture's own
         reserved = torch.cuda.memory_reserved(self.device)
         t0 = time.perf_counter()
-        with torch.inference_mode(), f32_precision(), torch.cuda.device(self.device):
+        with torch.inference_mode(), matmul_precision(self.policy), \
+                torch.cuda.device(self.device):
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):

@@ -9,9 +9,14 @@ BigVGAN vocoder and ``quantize_vocoder`` (int8 HiFiGAN stages).  Inputs are
 padded to the same buckets as the JAX interface (32 phones, 16 frames per
 phone, 64 vocoder frames), so both compute on the same shapes.  Text to wave runs
 on the device without a host round trip; frames past each mel length are
-zeroed before vocoding.  Every entry point runs its convs and matmuls in
-f32 (``utils.device.f32_precision``) whatever the caller's TF32 settings,
-and leaves those settings as it found them.
+zeroed before vocoding.  Every entry point runs its convs and matmuls
+under the interface's ``matmul_precision`` (``utils.device.matmul_precision``:
+"float32" by default, IEEE f32; "default" lets cuDNN and cuBLAS use TF32,
+as JAX's default precision does on an NVIDIA card) whatever the caller's
+TF32 settings, and leaves those settings as it found them.  ``dtype``
+(``torch.bfloat16``) is the acoustic model's and a vocoder named by string's
+compute dtype, as the JAX interface's ``dtype``; the GST, a vocoder module
+passed in and the returned waves, mels and prosody stay f32.
 
 As the JAX interface jits one function per bucket, the port keeps one
 ``infer.capture.Bucket`` per (batch size, phone bucket, frame bucket,
@@ -24,11 +29,13 @@ what the pool already holds.  The knobs are a (4,) tensor that only
 the device reads, so they never make a new bucket.  ``_dispatch_call``
 enqueues a sentence without waiting for the device, and ``read_to_file``
 enqueues every sentence before it fetches the first.  A graph fixes the
-vocoder's mode at its capture: ``quantize_vocoder`` clears the caches.
+vocoder's mode and the precision policy at its capture:
+``quantize_vocoder`` and setting ``matmul_precision`` clear the caches.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import itertools
 import math
@@ -46,7 +53,7 @@ from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator, calibrate_act_scales
-from toucan_tpu_torch.utils.device import f32_precision, resolve_device
+from toucan_tpu_torch.utils.device import check_policy, matmul_precision, resolve_device
 
 VOCODERS = {"hifigan": HiFiGANGenerator, "bigvgan": BigVGAN}
 PHONE_BUCKET = 32
@@ -60,19 +67,38 @@ def _round_up(n, m):
     return max(m, int(math.ceil(n / m)) * m)
 
 
+def _under_policy(method):
+    """Run an entry point under its interface's ``matmul_precision``."""
+    @functools.wraps(method)
+    def wrapper(self, *args, **kwargs):
+        with matmul_precision(self.matmul_precision):
+            return method(self, *args, **kwargs)
+    return wrapper
+
+
 class ToucanTTSInterface:
     def __init__(self, tts_state_dict, vocoder_state_dict,
                  config: Optional[ToucanTTSConfig] = None,
                  vocoder: Union[str, nn.Module] = "hifigan", default_embedding=None,
                  language: str = "en", use_g2p: bool = True, seed: int = 0, device=None,
-                 gst_state_dict=None):
+                 gst_state_dict=None, dtype: Optional[torch.dtype] = None,
+                 matmul_precision: str = "float32"):
         """``vocoder`` is "hifigan" (``HiFiGANGenerator()``), "bigvgan"
         (``BigVGAN()``) or a vocoder module of the checkpoint's widths; the
         state dicts are loaded into the models.  ``gst_state_dict``: the
         StyleEmbedding's, needed by ``set_utterance_embedding`` from audio.
-        ``device`` defaults to the card; pass "cpu" for the CPU."""
+        ``device`` defaults to the card; pass "cpu" for the CPU.
+        ``dtype`` (e.g. ``torch.bfloat16``) overrides the compute dtype of
+        the acoustic model and of a vocoder named by string, as the JAX
+        interface's ``dtype`` does.  ``matmul_precision``: "float32" (the
+        port's default, unlike JAX's "default": f32 is the port's contract,
+        which its card-against-CPU checks rest on) or "default" (TF32 in
+        cuDNN and cuBLAS); the kernels keep their own arithmetic under
+        either."""
         self.device = resolve_device(device)
         self.config = config or ToucanTTSConfig()
+        if dtype is not None and self.config.dtype != dtype:
+            self.config = dataclasses.replace(self.config, dtype=dtype)
         self.model = ToucanTTS(self.config)
         self.model.load_state_dict(tts_state_dict)
         self.model.to(self.device).eval()
@@ -80,7 +106,7 @@ class ToucanTTSInterface:
             if vocoder not in VOCODERS:
                 raise ValueError(f"vocoder must be one of {sorted(VOCODERS)} or a module, "
                                  f"got {vocoder!r}")
-            vocoder = VOCODERS[vocoder]()
+            vocoder = VOCODERS[vocoder](dtype=dtype or torch.float32)
         self.vocoder = vocoder
         self.vocoder.load_state_dict(vocoder_state_dict)
         self.vocoder.to(self.device).eval()
@@ -98,6 +124,7 @@ class ToucanTTSInterface:
         self._vocoder_cache = {}     # mel -> wave buckets of _vocode
         self._graph_pool = None      # the memory pool all buckets' graphs capture into
         self._eager = False          # run every call eagerly, no bucket (comparisons)
+        self._matmul_precision = check_policy(matmul_precision)
         if default_embedding is None and self.config.utt_embed_dim is not None:
             default_embedding = np.zeros(self.config.utt_embed_dim, np.float32)
         self.default_utterance_embedding = (
@@ -105,6 +132,17 @@ class ToucanTTSInterface:
             else np.asarray(default_embedding, np.float32).reshape(-1))
 
     # ------------------------------------------------------------- setters
+
+    @property
+    def matmul_precision(self) -> str:
+        """The precision policy of every entry point and captured bucket."""
+        return self._matmul_precision
+
+    @matmul_precision.setter
+    def matmul_precision(self, policy: str):
+        if check_policy(policy) != self._matmul_precision:
+            self._matmul_precision = policy
+            self._clear_caches()  # a graph keeps the policy of its capture
 
     def set_language(self, lang: str):
         self.set_phonemizer_language(lang)
@@ -116,7 +154,7 @@ class ToucanTTSInterface:
     def set_accent_language(self, lang: str):
         self.lang_id = language_id(lang) if self.config.lang_embs is not None else None
 
-    @f32_precision()
+    @_under_policy
     def set_utterance_embedding(self, path_to_reference_audio: str = "", embedding=None,
                                 wave=None, sr: int = 16000):
         """Set the speaker: an ``embedding`` as given, or the GST embedding of
@@ -136,7 +174,7 @@ class ToucanTTSInterface:
         emb = self.gst(spec[None], [len(spec)])
         self.default_utterance_embedding = emb[0].cpu().numpy()
 
-    @f32_precision()
+    @_under_policy
     def quantize_vocoder(self, calibration_mel=None, calibration_text=None, act_scales=None):
         """Switch the HiFiGAN vocoder to int8 stages (K3) with activation
         scales calibrated on a representative mel.
@@ -176,7 +214,7 @@ class ToucanTTSInterface:
         captures into the pool that the interface's other graphs share."""
         if self.device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
-        return Bucket(step, inputs, self.device, self._graph_pool)
+        return Bucket(step, inputs, self.device, self._graph_pool, self.matmul_precision)
 
     @torch.inference_mode()
     def _calibration_mel(self, text: str) -> torch.Tensor:
@@ -190,7 +228,7 @@ class ToucanTTSInterface:
             self._tensor(text_arr), self._tensor([n], torch.int64), max_frames,
             utterance_embedding=self._utt(1), lang_ids=self._lang([self.lang_id]),
             glow_noise=self._noise(1, max_frames))
-        return after[:, :int(lens[0])]
+        return after[:, :int(lens[0])].float()
 
     def _vocoder_call(self, mel):
         if self._voc_act_scales is None:
@@ -237,13 +275,15 @@ class ToucanTTSInterface:
         bucket.  Tensors on ``self.device``; ``knobs`` the (duration, pitch
         variance, energy variance, pause) scales, a (4,) tensor or floats.
         Returns (wave (B, 384*max_frames), after, durations, pitch, energy,
-        mel_lengths)."""
+        mel_lengths); the mel handed to the vocoder and the one returned are
+        f32 whatever the model's dtype, as in JAX (``interface.py:239``)."""
         _, after, dur, pit, ene, lens = self.model.infer(
             text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
             gold_durations=durations, gold_pitch=pitch, gold_energy=energy,
             duration_scaling_factor=knobs[0], pitch_variance_scale=knobs[1],
             energy_variance_scale=knobs[2], pause_duration_scaling_factor=knobs[3],
             glow_noise=noise)
+        after = after.float()
         mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
         mel = torch.where(mask, after, torch.zeros((), device=after.device))
         wave = self._vocoder_call(mel)[..., 0]
@@ -298,7 +338,7 @@ class ToucanTTSInterface:
                               energy=self._tensor(np.zeros((b, n_pad, 1))))
             self._e2e_bucket(n_pad * FRAMES_PER_PHONE, inputs)
 
-    @f32_precision()
+    @_under_policy
     @torch.inference_mode()
     def _vocode(self, mel: np.ndarray) -> np.ndarray:
         """(L, 80) -> (L*384,) 24 kHz wave, through a bucket of 64 frames."""
@@ -320,7 +360,7 @@ class ToucanTTSInterface:
             return None
         return self._tensor(np.tile(self.default_utterance_embedding[None], (b, 1)))
 
-    @f32_precision()
+    @_under_policy
     def _dispatch_call(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                        energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
                        durations=None, pitch=None, energy=None, input_is_phones=False,
@@ -363,7 +403,7 @@ class ToucanTTSInterface:
                              pitch=pad_override(pitch), energy=pad_override(energy))
         return outs, n
 
-    @f32_precision()
+    @_under_policy
     def __call__(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                  energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
                  durations=None, pitch=None, energy=None, input_is_phones=False,
@@ -434,7 +474,7 @@ class ToucanTTSInterface:
         plt.close(fig)
         return path
 
-    @f32_precision()
+    @_under_policy
     def synthesize_batch(self, texts, input_is_phones=False, languages=None,
                          utterance_embeddings=None, duration_scaling_factor=1.0,
                          pitch_variance_scale=1.0, energy_variance_scale=1.0,
@@ -473,7 +513,7 @@ class ToucanTTSInterface:
 
     # ----------------------------------------------------------- file I/O
 
-    @f32_precision()
+    @_under_policy
     def read_to_file(self, text_list, file_location, duration_scaling_factor=1.0,
                      pitch_variance_scale=1.0, energy_variance_scale=1.0, silent=True,
                      dur_list=None, pitch_list=None, energy_list=None,

@@ -6,7 +6,10 @@ Counterpart of ``toucan_tpu/kernels/pallas_aliasfree.py``.  The kernel is
 kernel for CUDA tensors and runs the plain version for CPU tensors; any
 other device raises.  Unlike the Pallas kernel, which covers the interior
 and leaves the edges to its caller, one launch computes every sample,
-replicate-padded edges included.
+replicate-padded edges included.  It takes f32 or bf16 x (the JAX kernel
+streams its model's dtype): bf16 is read and written as bf16 and computed
+in f32, with e^alpha and 1 / (e^beta + eps) rounded to bf16 first;
+``alias_free_snake.bf16`` counts that instantiation's launches.
 
 The kernel computes the 2x signal as its even and odd branches with the
 four phase filters of ``phase_filters``; ``alias_free_snake_polyphase`` is
@@ -108,7 +111,8 @@ class SnakeGeometry:
 
 @functools.lru_cache(maxsize=512)
 def snake_geometry(b: int, t: int, c: int, n_sm: int, blocks_per_sm: int = BLOCKS_PER_SM,
-                   aligned: bool = True, persistent: bool = True) -> SnakeGeometry:
+                   aligned: bool = True, persistent: bool = True,
+                   per_vector: int = 4) -> SnakeGeometry:
     """Pick K5's run length and grid for x (B, T, C).
 
     A warp walks one run of ``seg_chunks`` chunks of one channel's row.
@@ -118,8 +122,9 @@ def snake_geometry(b: int, t: int, c: int, n_sm: int, blocks_per_sm: int = BLOCK
     (ties: the longer run).  Where there are more runs than slots, the
     grid is the slots and each warp walks runs in turn (persistent); else
     one warp a run.  ``persistent=False`` takes one chunk a run and one
-    warp a run.  ``vector``: float4 access, only where every row starts on
-    a 16-byte boundary (``aligned``: x does, and T % 4 == 0).
+    warp a run.  ``vector``: 16-byte access, only where every row starts on
+    a 16-byte boundary (``aligned``: x does, and T is a multiple of
+    ``per_vector``, the elements of 16 bytes: 4 f32 or 8 bf16).
     """
     rows, per_row = b * c, -(-t // CHUNK)
     slots = n_sm * blocks_per_sm * WARPS_PER_BLOCK
@@ -136,36 +141,43 @@ def snake_geometry(b: int, t: int, c: int, n_sm: int, blocks_per_sm: int = BLOCK
     items = rows * segs
     warps = min(items, slots) if persistent else items
     return SnakeGeometry(seg, segs, items, -(-warps // WARPS_PER_BLOCK),
-                         aligned and t % 4 == 0)
+                         aligned and t % per_vector == 0)
 
 
 _slots_cache: dict = {}
 
 
-def _slots(device):
-    """(SMs, blocks of K5 one SM runs at once) of the card, asked once."""
-    if device.index not in _slots_cache:
+def _slots(device, dtype=torch.float32):
+    """(SMs, blocks of K5's ``dtype`` instantiation one SM runs at once) of
+    the card, asked once."""
+    key = (device.index, dtype)
+    if key not in _slots_cache:
         lib = build.load("alias_free_snake")
         fn = lib.alias_free_snake_blocks_per_sm
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int]
         n = ctypes.c_int(0)
         with torch.cuda.device(device):
-            build.check(lib, fn(ctypes.addressof(n)), "alias_free_snake_blocks_per_sm")
+            build.check(lib, fn(ctypes.addressof(n), int(dtype == torch.bfloat16)),
+                        "alias_free_snake_blocks_per_sm")
         n_sm = torch.cuda.get_device_properties(device).multi_processor_count
-        _slots_cache[device.index] = (n_sm, n.value)
-    return _slots_cache[device.index]
+        _slots_cache[key] = (n_sm, n.value)
+    return _slots_cache[key]
 
 
 def geometry_for(xt: torch.Tensor, persistent: bool = True) -> SnakeGeometry:
     """The geometry ``alias_free_snake`` launches xt (B, C, T) with on its card."""
     b, c, t = xt.shape
-    return snake_geometry(b, t, c, *_slots(xt.device), xt.data_ptr() % 16 == 0, persistent)
+    return snake_geometry(b, t, c, *_slots(xt.device, xt.dtype), xt.data_ptr() % 16 == 0,
+                          persistent, 16 // xt.element_size())
+
+
+_ENTRY = {torch.float32: "alias_free_snake_f32", torch.bfloat16: "alias_free_snake_bf16"}
 
 
 @functools.lru_cache(maxsize=None)
-def _launcher(lib: ctypes.CDLL):
-    fn = lib.alias_free_snake_f32
+def _launcher(lib: ctypes.CDLL, dtype: torch.dtype):
+    fn = getattr(lib, _ENTRY[dtype])
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     return fn
@@ -176,13 +188,14 @@ _TAPS = (ctypes.c_float * 28)(*np.concatenate(phase_filters()).tolist())
 
 def _check(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor):
     """What the kernel needs of its inputs; raises ValueError before a launch."""
-    if x.dim() != 3 or x.dtype != torch.float32:
-        raise ValueError(f"x must be a (B, T, C) float32 tensor, got {tuple(x.shape)} {x.dtype}")
+    if x.dim() != 3 or x.dtype not in _ENTRY:
+        raise ValueError(f"x must be a (B, T, C) float32 or bfloat16 tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}")
     b, t, c = x.shape
     for name, p in (("alpha", alpha), ("beta", beta)):
-        if p.shape != (c,) or p.dtype != torch.float32 or p.device != x.device \
+        if p.shape != (c,) or p.dtype != x.dtype or p.device != x.device \
                 or not p.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 ({c},) tensor on {x.device}")
+            raise ValueError(f"{name} must be a contiguous {x.dtype} ({c},) tensor on {x.device}")
     if t < 1 or b < 1 or c < 1 or b * c * t >= 2 ** 31:
         raise ValueError(f"unsupported shape {tuple(x.shape)}")
     build.check_no_grad("alias_free_snake", x=x, alpha=alpha, beta=beta)
@@ -191,7 +204,8 @@ def _check(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor):
 def alias_free_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """Launch the CUDA kernel on a CUDA tensor; plain version on a CPU tensor.
 
-    x (B, T, C) f32; alpha, beta (C,) f32 log-scale SnakeBeta parameters.
+    x (B, T, C) f32 or bf16; alpha, beta (C,) log-scale SnakeBeta
+    parameters of x's dtype; the output has x's dtype.
     The kernel walks time innermost: the (B, T, C) view of a contiguous
     (B, C, T) tensor, as the BigVGAN convs leave it, goes in without a copy;
     any other strides are copied to that layout first.  Returns the (B, T, C)
@@ -209,7 +223,7 @@ def alias_free_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -
     geo = geometry_for(xt)
     out = torch.empty_like(xt)
     lib = build.load("alias_free_snake")
-    fn = _launcher(lib)
+    fn = _launcher(lib, x.dtype)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(xt.data_ptr(), alpha.data_ptr(), beta.data_ptr(), out.data_ptr(),
@@ -217,7 +231,10 @@ def alias_free_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -
                  stream)
     build.check(lib, err, "alias_free_snake")
     build.count_launch(alias_free_snake)
+    if x.dtype == torch.bfloat16:
+        build.count_launch(alias_free_snake.bf16)
     return out.transpose(1, 2)
 
 
 alias_free_snake.launches = 0
+alias_free_snake.bf16 = build.LaunchCount("alias_free_snake bf16")

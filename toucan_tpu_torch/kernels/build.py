@@ -81,6 +81,19 @@ def count_launch(wrapper):
         _tally.counts[wrapper] = _tally.counts.get(wrapper, 0) + 1
 
 
+class LaunchCount:
+    """The launches of one instantiation of a kernel (such as K1's on bf16
+    inputs), counted by ``count_launch`` beside its wrapper's count of all
+    its launches."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def __repr__(self):
+        return f"LaunchCount({self.name!r}, launches={self.launches})"
+
+
 def hold(t: torch.Tensor) -> torch.Tensor:
     """Return ``t``, a tensor from a cache that may later drop it; while a
     capture is open, its graph reads ``t`` by address, so the capture's

@@ -5,7 +5,10 @@ Counterpart of ``toucan_tpu/kernels/pallas_attention.py``.  The kernel is
 CUDA tensors and runs ``flash_rel_attention_plain`` for CPU tensors; any
 other device raises.  The kernel is built for the head dims in
 ``BUILT_HEAD_DIMS``; any other d up to 128 goes in zero-padded to the next
-of them (``padded_inputs``).
+of them (``padded_inputs``).  It takes f32 inputs (split TF32 products) or
+bf16 inputs (bf16 products, f32 softmax), as the JAX kernel takes the
+dtype of its model; the output is f32 either way.  ``flash_rel_attention.bf16``
+counts the bf16 instantiation's launches.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from toucan_tpu_torch.kernels import build
 
 BUILT_HEAD_DIMS = (16, 32, 48, 64, 96, 128)
 MAX_HEAD_DIM = BUILT_HEAD_DIMS[-1]
+DTYPES = (torch.float32, torch.bfloat16)
+_ENTRY = {torch.float32: "flash_rel_attention_f32", torch.bfloat16: "flash_rel_attention_bf16"}
 
 
 def padded_inputs(q_u, q_v, k, v, p):
@@ -40,8 +45,11 @@ def flash_rel_attention_plain(q_u, q_v, k, v, p, lengths, scale=None):
     q_u, q_v, k, v (B, H, T, d); p (H, 2T-1, d) with row T-1 = offset 0;
     lengths (B,) valid key counts; scale 1 / sqrt(d) by default.  Keys >=
     lengths[b] are masked; rows with no valid key give 0; padded query rows
-    attend to the valid keys.
+    attend to the valid keys.  bf16 inputs are upcast to f32 first, as the
+    JAX kernel's body upcasts them; the result is f32.
     """
+    if q_u.dtype == torch.bfloat16:
+        q_u, q_v, k, v, p = (x.float() for x in (q_u, q_v, k, v, p))
     b, h, t, d = q_u.shape
     ar = torch.arange(t, device=q_u.device)
     ac = q_u @ k.transpose(-1, -2)                               # (B,H,T,T)
@@ -63,9 +71,11 @@ def _check(q_u, q_v, k, v, p, lengths):
         raise ValueError(f"p has shape {tuple(p.shape)}, expected {(h, 2 * t - 1, d)}")
     if lengths.shape != (b,) or lengths.dtype != torch.int32:
         raise ValueError("lengths must be an int32 tensor of shape (B,)")
+    if q_u.dtype not in DTYPES:
+        raise ValueError(f"q_u must be float32 or bfloat16, got {q_u.dtype}")
     for name, x in (("q_u", q_u), ("q_v", q_v), ("k", k), ("v", v), ("p", p)):
-        if x.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {x.dtype}")
+        if x.dtype != q_u.dtype:
+            raise ValueError(f"{name} must be {q_u.dtype} as q_u is, got {x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     for x in (q_v, k, v, p, lengths):
@@ -83,8 +93,9 @@ def _check(q_u, q_v, k, v, p, lengths):
 def flash_rel_attention(q_u, q_v, k, v, p, lengths):
     """Launch the CUDA kernel on CUDA tensors; plain version on CPU tensors.
 
-    Same arguments as ``flash_rel_attention_plain``; returns (B, H, T, d) f32.
-    A head dim the kernel is not built for is zero-padded (``padded_inputs``).
+    Same arguments as ``flash_rel_attention_plain``, all five float32 or
+    all five bfloat16; returns (B, H, T, d) f32.  A head dim the kernel is
+    not built for is zero-padded (``padded_inputs``).
     The kernel has no backward: on the card a call with grad enabled on an
     input that requires grad raises ValueError.
     """
@@ -94,12 +105,12 @@ def flash_rel_attention(q_u, q_v, k, v, p, lengths):
         raise ValueError(f"flash_rel_attention takes cuda or cpu tensors, got {q_u.device}")
     _check(q_u, q_v, k, v, p, lengths)
     lib = build.load("flash_rel_attention")
-    fn = lib.flash_rel_attention_f32
+    fn = getattr(lib, _ENTRY[q_u.dtype])
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     b, h, t, d = q_u.shape
     q_u, q_v, k, v, p = padded_inputs(q_u, q_v, k, v, p)
-    out = torch.empty_like(q_u)
+    out = torch.empty(q_u.shape, dtype=torch.float32, device=q_u.device)
     with torch.cuda.device(q_u.device):
         stream = torch.cuda.current_stream(q_u.device).cuda_stream
         err = fn(q_u.data_ptr(), q_v.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -107,7 +118,10 @@ def flash_rel_attention(q_u, q_v, k, v, p, lengths):
                  1.0 / math.sqrt(d), stream)
     build.check(lib, err, "flash_rel_attention")
     build.count_launch(flash_rel_attention)
+    if q_u.dtype == torch.bfloat16:
+        build.count_launch(flash_rel_attention.bf16)
     return out if out.shape[-1] == d else out[..., :d].contiguous()
 
 
 flash_rel_attention.launches = 0
+flash_rel_attention.bf16 = build.LaunchCount("flash_rel_attention bf16")

@@ -100,8 +100,15 @@ def sniff_toucan_config(sd) -> ToucanTTSConfig:
     multilingual-multispeaker -> multispeaker-only (``lang_embs=None``) ->
     single-speaker (``utt_embed_dim=None``, plain-LayerNorm predictors))
     plus the layer and width geometry (conformer depth, predictor stacks,
-    glow depth).  A checkpoint without a PostFlow (FastSpeech2-style) is
-    refused: the port's ToucanTTS always has one.
+    glow depth).  ``use_postflow`` is whether there are ``post_flow.flows.*``
+    keys (a FastSpeech2-style checkpoint has none).  ``conditional_predictors``
+    is whether the duration predictor's norms are conditional layer norms,
+    read from its own keys (``norms.{i}.W_scale.*``, the MLP that
+    ``compat/torch_toucan.py::_t_cln`` reads), not from the encoder's: the
+    JAX package's ``compat/load.py:94-99`` takes any checkpoint with
+    ``encoder.hs_emb_projection`` as conditional, and so misreads the
+    FastSpeech2 layout (an utterance embedding in the encoder, plain
+    LayerNorm predictors).
     """
     kw = {}
     if "feat_out.weight" in sd:  # Linear(adim -> mel)
@@ -126,15 +133,17 @@ def sniff_toucan_config(sd) -> ToucanTTSConfig:
             kw[f"{pred}_chans"] = int(w.shape[0])
             kw[f"{pred}_kernel"] = int(w.shape[-1])
     n_flows = _layer_count(sd, r"post_flow\.flows\.(\d+)\.")
-    if not n_flows:
-        raise ValueError("checkpoints without a PostFlow (FastSpeech2-style) are not ported")
-    kw["glow_blocks"] = n_flows // 3  # [ActNorm, InvConvNear, Coupling]
-    kw["glow_layers"] = _layer_count(sd, r"post_flow\.flows\.2\.wn\.in_layers\.(\d+)\.")
-    wv = sd.get("post_flow.flows.2.wn.in_layers.0.weight_v",
-                sd.get("post_flow.flows.2.wn.in_layers.0.weight"))
-    if wv is not None:
-        kw["glow_hidden"] = int(wv.shape[1])
-        kw["glow_kernel"] = int(wv.shape[-1])
+    kw["use_postflow"] = n_flows > 0
+    if n_flows:
+        kw["glow_blocks"] = n_flows // 3  # [ActNorm, InvConvNear, Coupling]
+        kw["glow_layers"] = _layer_count(sd, r"post_flow\.flows\.2\.wn\.in_layers\.(\d+)\.")
+        wv = sd.get("post_flow.flows.2.wn.in_layers.0.weight_v",
+                    sd.get("post_flow.flows.2.wn.in_layers.0.weight"))
+        if wv is not None:
+            kw["glow_hidden"] = int(wv.shape[1])
+            kw["glow_kernel"] = int(wv.shape[-1])
+    kw["conditional_predictors"] = any(
+        re.match(r"duration_predictor\.norms\.\d+\.W_scale\.", k) for k in sd)
 
     lang_embs = None
     if "encoder.language_embedding.weight" in sd:
@@ -211,14 +220,24 @@ def interface_from_torch(tts_path: str, vocoder_path: str, embedding_path: str,
                          **interface_kwargs):
     """A ready ToucanTTSInterface from reference checkpoints.
 
-    ``vocoder_kind`` is "hifigan", "bigvgan", or a vocoder module of the
+    ``vocoder_kind`` is "hifigan", "bigvgan" (the generator of that kind at
+    the checkpoint's width, ``input_conv``'s or ``conv_pre``'s output
+    channels, in the interface's ``dtype``), or a vocoder module of the
     checkpoint's widths to load the weights into (for example
     ``HiFiGANGenerator(imcol_mode="int8")``).  Extra keyword arguments
-    (``device``, ``seed``) pass through to the interface."""
-    from toucan_tpu_torch.infer.interface import ToucanTTSInterface
+    (``device``, ``seed``, ``dtype``, ``matmul_precision``) pass through to
+    the interface."""
+    from toucan_tpu_torch.infer.interface import VOCODERS, ToucanTTSInterface
 
     tts_sd, default_emb, config = load_toucan_tts(tts_path, return_config=True)
-    return ToucanTTSInterface(tts_sd, load_vocoder(vocoder_path), config=config,
+    voc_sd = load_vocoder(vocoder_path, vocoder_kind if isinstance(vocoder_kind, str)
+                          else "hifigan")
+    if isinstance(vocoder_kind, str):
+        first = "input_conv.weight" if vocoder_kind == "hifigan" else "conv_pre.weight"
+        vocoder_kind = VOCODERS[vocoder_kind](
+            channels=int(voc_sd[first].shape[0]),
+            dtype=interface_kwargs.get("dtype") or torch.float32)
+    return ToucanTTSInterface(tts_sd, voc_sd, config=config,
                               vocoder=vocoder_kind, default_embedding=default_emb,
                               gst_state_dict=load_style_embedding(embedding_path),
                               language=language, use_g2p=use_g2p, **interface_kwargs)

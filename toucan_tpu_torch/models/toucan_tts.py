@@ -5,6 +5,17 @@ Counterpart of ``toucan_tpu/models/toucan_tts.py``; reference
 Callers pass padded inputs, lengths and the padded output length
 ``max_frames``; masks keep each row equal to its exact-length run.
 Parameter names are the reference's state-dict keys.
+
+``ToucanTTSConfig.dtype`` is the compute dtype, as the JAX config's: with
+``torch.bfloat16`` the parameters are held in bf16 (a state dict's f32
+values are rounded as they load, as JAX's bf16 serving rounds them) and
+every layer computes in bf16.  What JAX keeps in f32 under bf16 stays f32:
+LayerNorm and GroupNorm statistics (PyTorch computes them in f32 for bf16
+inputs), the utterance embedding's normalization, the glow's InvConv
+inverse (``nn/glow.py``), K1's softmax, the duration rounding and the
+variance scaling.  ``fastspeech2_config`` and the ``use_postflow`` and
+``conditional_predictors`` fields give the JAX package's glow-less,
+unconditional-predictor variants.
 """
 
 from dataclasses import dataclass
@@ -52,6 +63,20 @@ class ToucanTTSConfig:
     glow_kernel: int = 5
     glow_layers: int = 4
     glow_sqz: int = 2
+    use_postflow: bool = True            # False: FastSpeech2-style, no glow
+    conditional_predictors: bool = True  # False: plain-LayerNorm predictors
+    dtype: torch.dtype = torch.float32
+
+
+def fastspeech2_config(**overrides) -> ToucanTTSConfig:
+    """The legacy FastSpeech2 variant used for GST embedding co-training
+    (``toucan_tpu/models/toucan_tts.py::fastspeech2_config``; reference
+    ``FastSpeech2/FastSpeech2.py``): adim 384, a 5-layer pitch predictor,
+    unconditional predictors, no post-flow."""
+    base = dict(adim=384, enc_units=1536, dec_units=1536, pitch_layers=5,
+                use_postflow=False, conditional_predictors=False)
+    base.update(overrides)
+    return ToucanTTSConfig(**base)
 
 
 class ToucanTTS(nn.Module):
@@ -62,21 +87,26 @@ class ToucanTTS(nn.Module):
                                  use_input_embedding=True, input_features=c.input_features,
                                  use_output_norm=True, utt_embed_dim=c.utt_embed_dim,
                                  lang_embs=c.lang_embs)
+        # unconditional predictors even where the encoder takes an utterance
+        # embedding (toucan_tpu/models/toucan_tts.py:93)
+        pred_utt_dim = c.utt_embed_dim if c.conditional_predictors else None
         self.duration_predictor = DurationPredictor(c.adim, c.duration_layers, c.duration_chans,
-                                                    c.duration_kernel, c.utt_embed_dim)
+                                                    c.duration_kernel, pred_utt_dim)
         self.pitch_predictor = VariancePredictor(c.adim, c.pitch_layers, c.pitch_chans,
-                                                 c.pitch_kernel, c.utt_embed_dim)
+                                                 c.pitch_kernel, pred_utt_dim)
         self.energy_predictor = VariancePredictor(c.adim, c.energy_layers, c.energy_chans,
-                                                  c.energy_kernel, c.utt_embed_dim)
+                                                  c.energy_kernel, pred_utt_dim)
         self.pitch_embed = nn.Sequential(nn.Conv1d(1, c.adim, 1))
         self.energy_embed = nn.Sequential(nn.Conv1d(1, c.adim, 1))
         self.decoder = Conformer(c.adim, c.aheads, c.dec_units, c.dec_layers, c.dec_kernel,
                                  use_input_embedding=False, use_output_norm=False)
         self.feat_out = nn.Linear(c.adim, c.mel_channels)
         self.conv_postnet = PostNet(c.mel_channels)
-        self.post_flow = Glow(c.mel_channels, c.glow_hidden, c.glow_kernel,
-                              n_blocks=c.glow_blocks, n_layers=c.glow_layers,
-                              n_sqz=c.glow_sqz, text_condition_channels=c.adim)
+        if c.use_postflow:
+            self.post_flow = Glow(c.mel_channels, c.glow_hidden, c.glow_kernel,
+                                  n_blocks=c.glow_blocks, n_layers=c.glow_layers,
+                                  n_sqz=c.glow_sqz, text_condition_channels=c.adim)
+        self.to(c.dtype)
 
     @torch.no_grad()
     def infer(self, text, text_lengths, max_frames: int, utterance_embedding=None,
@@ -92,17 +122,22 @@ class ToucanTTS(nn.Module):
 
         Returns (before_outs, after_outs, durations, pitch, energy,
         mel_lengths), after_outs (B, max_frames, 80); frames past mel_lengths
-        are padding that the caller drops.
+        are padding that the caller drops.  Inputs are f32; the mels come out
+        in the config's dtype, pitch and energy in f32 (JAX's variance
+        scaling promotes them to its f32 knobs).  Without a post-flow the
+        mel is the PostNet's, and an odd last frame is kept.
         """
         cfg = self.config
+        dt = cfg.dtype
         f2i = feature_index()
         tmax = text.shape[1]
         if utterance_embedding is not None:
-            utterance_embedding = F.normalize(utterance_embedding, dim=-1)
+            utterance_embedding = F.normalize(utterance_embedding.float(), dim=-1)
         text_mask = make_non_pad_mask(text_lengths, tmax)
-        text_cmask = text_mask[..., None].to(text.dtype)
-        encoded = self.encoder(text, text_mask[:, None, :], utterance_embedding=utterance_embedding,
-                               lang_ids=lang_ids, conv_mask=text_cmask)
+        text_cmask = text_mask[..., None].to(dt)
+        encoded = self.encoder(text.to(dt), text_mask[:, None, :],
+                               utterance_embedding=utterance_embedding, lang_ids=lang_ids,
+                               conv_mask=text_cmask)
 
         pitch = (self.pitch_predictor(encoded, utterance_embedding, text_cmask)
                  if gold_pitch is None else gold_pitch)
@@ -126,16 +161,16 @@ class ToucanTTS(nn.Module):
             durations)
         durations = torch.round(durations.float() * duration_scaling_factor).to(torch.int32)
         durations = torch.where(text_mask, durations, torch.zeros_like(durations))
-        pitch = _scale_variance(pitch, pitch_variance_scale)
-        energy = _scale_variance(energy, energy_variance_scale)
+        pitch = _scale_variance(pitch.float(), pitch_variance_scale)
+        energy = _scale_variance(energy.float(), energy_variance_scale)
 
         # the all-zero fallback changes the returned durations, like the
         # reference's in-place LengthRegulator fix (LengthRegulator.py:52-53)
         durations = regulate_durations(durations)
         durations = torch.where(text_mask, durations, torch.zeros_like(durations))
 
-        enriched = encoded + conv_btc(self.pitch_embed[0], pitch) \
-            + conv_btc(self.energy_embed[0], energy)
+        enriched = encoded + conv_btc(self.pitch_embed[0], pitch.to(dt)) \
+            + conv_btc(self.energy_embed[0], energy.to(dt))
         upsampled = length_regulate(enriched, durations, max_frames)
         mel_lengths = durations.sum(1)
         frame_mask = make_non_pad_mask(mel_lengths, max_frames)
@@ -145,12 +180,14 @@ class ToucanTTS(nn.Module):
         before_outs = self.feat_out(decoded)
         after_outs = before_outs + self.conv_postnet(before_outs, mask=frame_cmask)
 
-        if glow_noise is None:
-            glow_noise = torch.zeros_like(after_outs)
-        after_outs = self.post_flow.sample(glow_noise, after_outs, upsampled,
-                                           nonpadding=frame_cmask)
-        # the flow's time squeeze drops a trailing odd frame
-        mel_lengths = (mel_lengths // cfg.glow_sqz) * cfg.glow_sqz
+        if cfg.use_postflow:
+            glow_noise = (torch.zeros_like(after_outs) if glow_noise is None
+                          else glow_noise.to(dt))
+            after_outs = self.post_flow.sample(glow_noise, after_outs, upsampled,
+                                               nonpadding=frame_cmask)
+            # the flow's time squeeze drops a trailing odd frame (JAX
+            # truncates only in its glow branch, toucan_tts.py:249-255)
+            mel_lengths = (mel_lengths // cfg.glow_sqz) * cfg.glow_sqz
         return before_outs, after_outs, durations, pitch, energy, mel_lengths
 
 

@@ -13,7 +13,10 @@ activations read and write that memory as (B, T, C) views with time
 innermost, so no transpose is copied.  Parameter names are the reference's
 state-dict keys with weight norm folded.  The Avocodo taps
 ``out_proj_x1``/``out_proj_x2`` are kept as parameters for the training
-slice; inference does not run them.
+slice; inference does not run them.  With ``dtype=torch.bfloat16`` (the JAX
+generator's ``dtype``) the parameters are held in bf16, the convs run as
+bf16 cuDNN convs and every activation runs K5's bf16 instantiation; the
+wave comes back f32.
 """
 
 from typing import Tuple
@@ -69,7 +72,8 @@ class BigVGAN(nn.Module):
                  upsample_rates: Tuple[int, ...] = (8, 6, 4, 2),
                  upsample_kernel_sizes: Tuple[int, ...] = (16, 12, 8, 4),
                  resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11),
-                 resblock_dilations: Tuple[int, ...] = (1, 3, 5)):
+                 resblock_dilations: Tuple[int, ...] = (1, 3, 5),
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_blocks = len(resblock_kernel_sizes)
         self.conv_pre = same_conv(num_mels, channels, 7)
@@ -85,14 +89,20 @@ class BigVGAN(nn.Module):
         self.conv_post = same_conv(ch, 1, 7)
         self.out_proj_x1 = same_conv(channels // 4, 1, 7)
         self.out_proj_x2 = same_conv(channels // 8, 1, 7)
+        self.to(dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: that of the parameters."""
+        return self.conv_pre.weight.dtype
 
     @torch.no_grad()
     def forward(self, c):
-        """c (B, T, 80) -> wave (B, 384*T, 1)."""
-        x = self.conv_pre(c.transpose(1, 2))
+        """c (B, T, 80) -> wave (B, 384*T, 1) f32."""
+        x = self.conv_pre(c.to(self.dtype).transpose(1, 2))
         n = self.n_blocks
         for i, (up,) in enumerate(self.ups):
             x = up(x)
             x = sum(block(x) for block in self.resblocks[i * n:(i + 1) * n]) / n
         x = self.conv_post(self.activation_post(x))
-        return torch.tanh(x).transpose(1, 2)
+        return torch.tanh(x).transpose(1, 2).float()

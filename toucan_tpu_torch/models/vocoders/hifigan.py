@@ -26,8 +26,20 @@ values and exact integer sums, so both compute the port's one stage.
 Parameter names are the reference's state-dict keys with weight norm folded.  The Avocodo taps
 ``out_proj_x1``/``out_proj_x2`` are kept as parameters for the training
 slice; inference does not run them.
+
+``dtype=torch.bfloat16`` is the JAX generator's ``dtype=bfloat16``: the
+parameters are held in bf16, the input conv, the upsamplers and the output
+conv run as bf16 cuDNN convs, and every stage that K3 and K4 do not take
+by the rules above runs K3 in its bf16 mode (bf16 stream and conv
+operands, f32 sums), where the JAX package runs it in XLA's bf16 convs.
+K3 takes bf16 stages of C % 32 == 0 up to 352 channels (a wider stage
+raises ValueError on the card); every stage of the released 512-channel
+geometry is in range.  The kernels take the stage's input as f32, which
+holds every bf16 value exactly, and the stage's output is rounded to bf16
+for the next upsampler.  The wave comes back f32.
 """
 
+import copy
 from typing import Optional, Tuple
 
 import torch
@@ -61,7 +73,8 @@ class HiFiGANGenerator(nn.Module):
                  resblock_kernel_sizes: Tuple[int, ...] = (3, 7, 11),
                  resblock_dilations: Tuple[int, ...] = (1, 3, 5), slope: float = 0.1,
                  stage_mode: str = "f32", imcol_mode: Optional[str] = None,
-                 imcol_stages: Tuple[int, ...] = (1, 2, 3), imcol_dense: bool = False):
+                 imcol_stages: Tuple[int, ...] = (1, 2, 3), imcol_dense: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if stage_mode not in ("f32",) + MODES:
             raise ValueError(f"stage_mode must be 'f32', 'int8' or 'bf16', got {stage_mode!r}")
@@ -96,6 +109,12 @@ class HiFiGANGenerator(nn.Module):
         self._packed = {}
         self._quantized = {}
         self._imcol = {}
+        self.to(dtype)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The compute dtype: that of the parameters."""
+        return self.input_conv.weight.dtype
 
     def stage_weights(self, i: int) -> StageWeights:
         """Stage i's 18 convs packed for the kernel, rebuilt only when the
@@ -112,17 +131,17 @@ class HiFiGANGenerator(nn.Module):
                                                self.resblock_dilations, self.slope))
         return self._packed[i][1]
 
-    def quantized_stage_weights(self, i: int, scales=None) -> QuantizedStage:
-        """Stage i quantized for ``stage_mode`` with its (18,) activation
-        scales, rebuilt only when the packed weights, the mode or the scales
-        tensor change."""
+    def quantized_stage_weights(self, i: int, scales=None, mode=None) -> QuantizedStage:
+        """Stage i quantized for ``mode`` (default ``stage_mode``) with its
+        (18,) activation scales, rebuilt only when the packed weights, the
+        mode or the scales tensor change."""
         sw = self.stage_weights(i)
+        mode = mode or self.stage_mode
         version = None if scales is None else scales._version
         hit = self._quantized.get(i)
-        if hit is None or hit[0] is not sw or hit[1] != self.stage_mode \
+        if hit is None or hit[0] is not sw or hit[1] != mode \
                 or hit[2] is not scales or hit[3] != version:
-            hit = (sw, self.stage_mode, scales, version,
-                   quantize_stage(sw, self.stage_mode, scales))
+            hit = (sw, mode, scales, version, quantize_stage(sw, mode, scales))
             self._quantized[i] = hit
         return hit[4]
 
@@ -160,21 +179,25 @@ class HiFiGANGenerator(nn.Module):
         """The generator; with a list ``stage_inputs`` it records each
         stage's (B, T, C) input and runs the stages as the JAX calibration
         pass does, ``stage_mode`` aside: K4 where ``imcol_mode`` takes the
-        stage, K2 elsewhere."""
-        x = self.input_conv(c.transpose(1, 2))
+        stage, K2 elsewhere (K3 bf16 in a bf16 generator)."""
+        dt = self.dtype
+        x = self.input_conv(c.to(dt).transpose(1, 2))
         for i, up in enumerate(self.upsamples):
             x = up(x).transpose(1, 2).contiguous()
             if stage_inputs is not None:
                 stage_inputs.append(x)
+            x = x.float()  # the kernels' input; exact from bf16
             if stage_inputs is None and self.runs_stage_kernel(i):
                 scales = None if act_scales is None else act_scales[i]
                 x = quantized_stage(x, self.quantized_stage_weights(i, scales))
             elif self.runs_imcol(i):
                 x = imcol_stage(x, self.imcol_stage_weights(i), imcol_fold(x.shape[-1]))
+            elif dt == torch.bfloat16:
+                x = quantized_stage(x, self.quantized_stage_weights(i, mode="bf16"))
             else:
                 x = hifigan_stage(x, self.stage_weights(i))
-            x = x.transpose(1, 2)
-        return self.output_conv(x).transpose(1, 2)
+            x = x.to(dt).transpose(1, 2)
+        return self.output_conv(x).transpose(1, 2).float()
 
 
 @torch.no_grad()
@@ -185,9 +208,14 @@ def calibrate_act_scales(model: HiFiGANGenerator, mel: torch.Tensor) -> dict:
     package's capture does (``stage_mode`` off: K2, or K4 at the stages
     ``imcol_mode`` takes), records each stage's input and
     computes its per-conv max activations
-    (``kernels/stage.py::calibrate_stage_scales``).  Returns
+    (``kernels/stage.py::calibrate_stage_scales``).  A bf16 generator is
+    calibrated in f32 on an f32 copy of its weights, as the JAX capture
+    clones the model with ``dtype=float32``
+    (``toucan_tpu/models/vocoders/hifigan.py:151-159``).  Returns
     ``{stage: (18,) f32}`` on the model's device, to pass as ``act_scales``.
     """
+    if model.dtype != torch.float32:
+        model = copy.deepcopy(model).float()
     inputs = []
     model._run(mel, stage_inputs=inputs)
     return {i: calibrate_stage_scales(x, model.stage_weights(i)) for i, x in enumerate(inputs)}

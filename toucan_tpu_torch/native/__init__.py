@@ -1,14 +1,17 @@
-"""Native (C++) host-side F0 tracker, loaded through ctypes.
+"""Native (C++) host-side F0 tracker and resampler, loaded through ctypes.
 
-Counterpart of ``toucan_tpu/native/__init__.py`` (its ``estimate_f0`` part;
-the native resampler is not ported).  ``f0.cpp`` is a copy of the JAX
-package's: a Boersma autocorrelation + Viterbi pitch tracker that matches
+Counterpart of ``toucan_tpu/native/__init__.py``.  ``f0.cpp`` and
+``resample.cpp`` are copies of the JAX package's: a Boersma
+autocorrelation + Viterbi pitch tracker that matches
 ``frontend.pitch.estimate_f0`` frame for frame, up to floating-point
-reordering, and is one to two orders of magnitude faster.  It is compiled
-on first use with the host's g++ (plain C ABI, no pybind11) into the
-git-ignored ``toucan_tpu_torch/_build/native/``, under a name that carries
-a hash of the source.  Without a compiler ``estimate_f0`` takes the numpy
-path; ``f0_calls`` counts which path each call took.
+reordering, and is one to two orders of magnitude faster; and a threaded
+polyphase windowed-sinc resampler that matches ``frontend.audio``'s numpy
+resampler to float32 rounding (double accumulation).  They are host code,
+not kernels.  Each is compiled on first use with the host's g++ (plain C
+ABI, no pybind11) into the git-ignored ``toucan_tpu_torch/_build/native/``,
+under a name that carries a hash of the source.  Without a compiler
+``estimate_f0`` and ``resample`` take the numpy paths; ``f0_calls`` and
+``resample_calls`` count which path each call took.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build", "native")
 _LOCK = threading.Lock()
 _LIBS: dict = {}
 f0_calls = {"native": 0, "numpy": 0}
+resample_calls = {"native": 0, "numpy": 0}
 
 
 def _lib_path(source: str) -> str:
@@ -106,4 +110,52 @@ def estimate_f0(audio, sr: int = 16000, hop: int = 256, fmin: float = 40.0,
     if n <= 0:
         return _numpy_f0(audio, sr, hop, fmin, fmax)
     f0_calls["native"] += 1
+    return out[:n]
+
+
+# ------------------------------------------------------------- resample
+
+def _configure_resample(lib):
+    lib.toucan_resample_out_len.restype = ctypes.c_int64
+    lib.toucan_resample_out_len.argtypes = [ctypes.c_int64, ctypes.c_int64, ctypes.c_int64]
+    lib.toucan_resample.restype = ctypes.c_int64
+    lib.toucan_resample.argtypes = [
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int64, ctypes.c_int32,
+    ]
+
+
+def load_resample_library():
+    return _load("resample.cpp", _configure_resample)
+
+
+def native_resample_available() -> bool:
+    return load_resample_library() is not None
+
+
+def _numpy_resample(audio, orig_sr, new_sr):
+    from toucan_tpu_torch.frontend.audio import resample_numpy
+
+    resample_calls["numpy"] += 1
+    return resample_numpy(np.asarray(audio, np.float32), orig_sr, new_sr)
+
+
+def resample(audio, orig_sr: int, new_sr: int, n_threads: int = 0) -> np.ndarray:
+    """Native polyphase sinc resampling of a mono float32 signal (the numpy
+    path without g++).  Matches ``frontend.audio.resample_numpy`` to float32
+    rounding.  ``n_threads``: 0 lets the library choose."""
+    lib = load_resample_library()
+    if lib is None:
+        return _numpy_resample(audio, orig_sr, new_sr)
+    audio = np.ascontiguousarray(audio, dtype=np.float32)
+    cap = int(lib.toucan_resample_out_len(len(audio), orig_sr, new_sr)) + 1
+    out = np.empty(cap, dtype=np.float32)
+    n = lib.toucan_resample(
+        audio.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), ctypes.c_int64(len(audio)),
+        ctypes.c_int64(orig_sr), ctypes.c_int64(new_sr),
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_float)), ctypes.c_int64(cap),
+        ctypes.c_int32(n_threads))
+    if n < 0:
+        return _numpy_resample(audio, orig_sr, new_sr)
+    resample_calls["native"] += 1
     return out[:n]

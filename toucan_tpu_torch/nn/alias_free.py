@@ -67,14 +67,32 @@ def downsample2(x: torch.Tensor) -> torch.Tensor:
     return F.conv1d(x, filt, stride=2, groups=c)
 
 
+def snake_factors(alpha: torch.Tensor, beta: torch.Tensor, dtype=torch.float32):
+    """(e^alpha, 1 / (e^beta + eps)) of the log-scale parameters, in f32,
+    rounded to ``dtype`` and back: the JAX kernel rounds both to x's dtype
+    before use (``toucan_tpu/kernels/pallas_aliasfree.py:136-137``)."""
+    a = torch.exp(alpha.float())
+    inv_b = 1.0 / (torch.exp(beta.float()) + SNAKE_EPS)
+    return a.to(dtype).float(), inv_b.to(dtype).float()
+
+
 def snake_beta(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
     """x + sin^2(e^alpha x) / (e^beta + eps) on (B, C, T), per channel (logscale)."""
-    a = torch.exp(alpha)[:, None]
-    inv_b = 1.0 / (torch.exp(beta)[:, None] + SNAKE_EPS)
-    return x + inv_b * torch.sin(x * a) ** 2
+    a, inv_b = snake_factors(alpha, beta)
+    return x + inv_b[:, None] * torch.sin(x * a[:, None]) ** 2
 
 
 def alias_free_snake(x: torch.Tensor, alpha: torch.Tensor, beta: torch.Tensor) -> torch.Tensor:
-    """(B, T, C) -> (B, T, C): upsample 2x, SnakeBeta, downsample 2x."""
+    """(B, T, C) -> (B, T, C): upsample 2x, SnakeBeta, downsample 2x.
+
+    A bf16 x is computed as the JAX kernel computes it: widened to f32,
+    e^alpha and the inverse rounded to bf16 (``snake_factors``), the
+    arithmetic in f32, the output rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        a, inv_b = snake_factors(alpha, beta, torch.bfloat16)
+        xc = x.transpose(1, 2).float()
+        y = upsample2(xc)
+        y = y + inv_b[:, None] * torch.sin(y * a[:, None]) ** 2
+        return downsample2(y).to(torch.bfloat16).transpose(1, 2)
     xc = x.transpose(1, 2)
     return downsample2(snake_beta(upsample2(xc), alpha, beta)).transpose(1, 2)

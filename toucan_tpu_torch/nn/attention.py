@@ -45,5 +45,5 @@ class RelPositionMultiHeadedAttention(nn.Module):
             lengths = torch.full((b,), t, dtype=torch.int32, device=query.device)
         else:
             lengths = mask.reshape(b, -1)[:, -t:].sum(-1, dtype=torch.int32)
-        o = flash_rel_attention(q_u, q_v, k, v, p, lengths)
-        return self.linear_out(o.transpose(1, 2).reshape(b, t, self.h * self.d_k))
+        o = flash_rel_attention(q_u, q_v, k, v, p, lengths)  # f32, as JAX's kernel returns it
+        return self.linear_out(o.transpose(1, 2).reshape(b, t, self.h * self.d_k).to(query.dtype))

@@ -77,7 +77,7 @@ class Conformer(nn.Module):
         if hasattr(self, "output_norm"):
             xs = self.output_norm(xs)
         if hasattr(self, "hs_emb_projection") and utterance_embedding is not None:
-            emb = F.normalize(utterance_embedding, dim=-1)
+            emb = F.normalize(utterance_embedding, dim=-1).to(xs.dtype)
             emb = emb[:, None, :].expand(xs.shape[0], xs.shape[1], emb.shape[-1])
             xs = self.hs_emb_projection(torch.cat([xs, emb], dim=-1))
         return xs

@@ -61,8 +61,8 @@ class InvConvNear(nn.Module):
 
     def weight(self):
         ns = self.n_split
-        l_mask = torch.tril(torch.ones(ns, ns, device=self.l.device), -1)
-        eye = torch.eye(ns, device=self.l.device)
+        l_mask = torch.tril(torch.ones(ns, ns, dtype=self.l.dtype, device=self.l.device), -1)
+        eye = torch.eye(ns, dtype=self.l.dtype, device=self.l.device)
         lower = self.l * l_mask + eye
         upper = self.u * l_mask.T + torch.diag(self.sign_s * torch.exp(self.log_s))
         return self.p @ lower @ upper
@@ -71,8 +71,10 @@ class InvConvNear(nn.Module):
         b, t, c = x.shape
         ns, nq = self.n_split, self.n_sqz
         x = x.reshape(b, t, nq, c // ns, ns // nq).permute(0, 1, 2, 4, 3).reshape(b, t, ns, c // ns)
-        # inv_ex: no singularity check, so no device sync on the hot path
-        weight = torch.linalg.inv_ex(self.weight()).inverse
+        # inv_ex: no singularity check, so no device sync on the hot path;
+        # in f32 whatever the model's dtype, as JAX inverts it
+        # (toucan_tpu/nn/glow.py:119), and torch.linalg has no bf16 inverse
+        weight = torch.linalg.inv_ex(self.weight().float()).inverse.to(x.dtype)
         z = torch.einsum("btgk,hg->bthk", x, weight)
         z = z.reshape(b, t, nq, ns // nq, c // ns).permute(0, 1, 2, 4, 3).reshape(b, t, c)
         return z * mask

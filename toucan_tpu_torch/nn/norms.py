@@ -33,6 +33,7 @@ class ConditionalLayerNorm(nn.Module):
         self.W_bias = _mlp(embedding_dim, channels)
 
     def forward(self, x, embedding):
+        embedding = embedding.to(x.dtype)
         scale = self.W_scale(embedding)
         bias = self.W_bias(embedding)
         mean = x.mean(-1, keepdim=True)

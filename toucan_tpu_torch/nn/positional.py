@@ -31,12 +31,15 @@ def relative_position_encoding(length: int, d_model: int, device=None) -> torch.
 
 
 @functools.lru_cache(maxsize=32)
-def _cached_table(length: int, d_model: int, device: torch.device) -> torch.Tensor:
+def _cached_table(length: int, d_model: int, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
     with torch.inference_mode(False):  # a normal tensor, usable outside inference mode too
-        return relative_position_encoding(length, d_model, device)
+        return relative_position_encoding(length, d_model, device).to(dtype)
 
 
 def rel_positional_encoding(x: torch.Tensor, d_model: int):
     """Scale the (B, T, D) input and return it with its (cached, shared,
-    read-only) position table."""
-    return x * math.sqrt(d_model), build.hold(_cached_table(x.shape[-2], d_model, x.device))
+    read-only) position table in x's dtype (JAX makes it in f32 and casts
+    it to the model's dtype)."""
+    return x * math.sqrt(d_model), build.hold(_cached_table(x.shape[-2], d_model, x.device,
+                                                            x.dtype))

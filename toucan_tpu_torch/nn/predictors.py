@@ -45,8 +45,8 @@ class DurationPredictor(_ConvStack):
         super().__init__(idim, n_layers, n_chans, kernel_size, utt_embed_dim)
 
     def forward(self, xs, utt_embed=None, input_mask=None):
-        """xs (B, T, D) -> (B, T) int32 durations."""
-        x = super().forward(xs, utt_embed, input_mask)[..., 0]
+        """xs (B, T, D) -> (B, T) int32 durations, rounded in f32."""
+        x = super().forward(xs, utt_embed, input_mask)[..., 0].float()
         return torch.clamp(torch.round(torch.exp(x) - self.OFFSET), min=0.0).to(torch.int32)
 
 

@@ -1,4 +1,4 @@
-"""Device resolution and the f32 contract of the port's entry points."""
+"""Device resolution and the precision policy of the port's entry points."""
 
 from __future__ import annotations
 
@@ -6,35 +6,57 @@ import contextlib
 
 import torch
 
+# the JAX interface's names for its matmul precision
+# (``toucan_tpu/infer/interface.py``, ``matmul_precision``): "float32" runs
+# convs and matmuls in IEEE f32; "default" is what JAX's default precision
+# is on an NVIDIA card, TF32 in cuDNN's convs and cuBLAS's matmuls
+POLICIES = ("float32", "default")
+
 
 def _precision_flags():
-    """(object, attribute, f32 value) of the cuDNN and matmul precision
-    switches, in the API the caller set them with.  ``allow_tf32`` exists on
-    every version this port runs on; once a caller has set the newer
-    ``fp32_precision`` switches, PyTorch refuses to read ``allow_tf32``,
-    and then those switches (cuDNN conv and RNN, matmul) are used."""
+    """(object, attribute, {policy: value}) of the cuDNN and matmul
+    precision switches, in the API the caller set them with.  ``allow_tf32``
+    exists on every version this port runs on; once a caller has set the
+    newer ``fp32_precision`` switches, PyTorch refuses to read
+    ``allow_tf32``, and then those switches (cuDNN conv and RNN, matmul)
+    are used."""
     cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
     try:
         cudnn.allow_tf32, matmul.allow_tf32
     except RuntimeError:
-        return [(obj, "fp32_precision", "ieee") for obj in (cudnn.conv, cudnn.rnn, matmul)]
-    return [(cudnn, "allow_tf32", False), (matmul, "allow_tf32", False)]
+        return [(obj, "fp32_precision", {"float32": "ieee", "default": "tf32"})
+                for obj in (cudnn.conv, cudnn.rnn, matmul)]
+    return [(obj, "allow_tf32", {"float32": False, "default": True}) for obj in (cudnn, matmul)]
+
+
+def check_policy(policy: str) -> str:
+    if policy not in POLICIES:
+        raise ValueError(f"matmul_precision must be one of {POLICIES}, got {policy!r}")
+    return policy
 
 
 @contextlib.contextmanager
-def f32_precision():
-    """Run convs and matmuls in full f32 (no TF32), then restore the
-    caller's settings.  PyTorch's default runs f32 convs in TF32 on the
-    card; the port's paths, and the kernels held to them, are f32."""
+def matmul_precision(policy: str = "float32"):
+    """Run cuDNN's convs and cuBLAS's matmuls under ``policy`` ("float32":
+    no TF32; "default": TF32 allowed), then restore the caller's settings.
+    PyTorch's own default runs f32 convs in TF32 on the card.  The port's
+    kernels keep their own arithmetic under either policy: they are not
+    library calls."""
+    check_policy(policy)
     flags = _precision_flags()
     saved = [getattr(obj, name) for obj, name, _ in flags]
     try:
-        for obj, name, value in flags:
-            setattr(obj, name, value)
+        for obj, name, values in flags:
+            setattr(obj, name, values[policy])
         yield
     finally:
         for (obj, name, _), value in zip(flags, saved):
             setattr(obj, name, value)
+
+
+def f32_precision():
+    """``matmul_precision("float32")``: convs and matmuls in full f32."""
+    return matmul_precision("float32")
 
 
 def resolve_device(device=None) -> torch.device:
