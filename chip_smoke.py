@@ -142,7 +142,24 @@ Phases, each reported on its own lines:
    reference ``.pt`` files and loaded by ``interface_from_torch`` (K1 12 at
    d = 96, K2 4), card against CPU; and, in the clone phase, the native
    resampler against numpy on the reference.  Each added phase prints its
-   wall time.
+   wall time;
+13. stochastic (after fastspeech2): a full-width ``StochasticToucanTTS``
+   (seeded; the flows' projections and affines live) on LONG_TEXT's ~110
+   phones with injected flow and glow noise, ``infer`` on the card twice
+   (first and steady, host clock; K1 12 a synthesis, nothing else) against
+   the CPU: durations equal, the mels within TOL_REF; an ``EmbeddingVAE``
+   loss and sample against the CPU;
+14. train (last): ``train_loop`` at full width on 48 seeded utterances
+   (40-120 phones, 1-12 frames a phone, two languages), batch 24 with the
+   spectrogram critic, the glow from step 4, 8 steps, then ``resume=True``
+   for 2 more, whose checkpoint starts SWA into ``best.pt``; no train step
+   may launch a kernel; the loop's step times, then steps timed alone on
+   one batch without and with the glow (utterances/s, mel frames/s), the
+   peak device memory, the profiler's top device items of one glow step;
+   ``best.pt`` served through ``load.interface_from_torch`` (K1 12 + K2 4
+   a synthesis); and the first step at full width with dropout 0 on two
+   utterances, card against CPU: the f32 losses and BatchNorm statistics,
+   and the gradients in float64.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -168,7 +185,9 @@ import torch
 
 from toucan_tpu_torch import native
 from toucan_tpu_torch.frontend import audio
+from toucan_tpu_torch.data import batching
 from toucan_tpu_torch.data.extraction import compute_frame_energy
+from toucan_tpu_torch.data.prefetch import to_tensors
 from toucan_tpu_torch.frontend.text import TextFrontend
 from toucan_tpu_torch.infer.cloner import UtteranceCloner
 from toucan_tpu_torch.infer.controllable import ControllableInterface
@@ -192,11 +211,16 @@ from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_sta
 from toucan_tpu_torch.load import GLOW_WEIGHT_NORM, interface_from_torch, split_weight_norm
 from toucan_tpu_torch.models.aligner import Aligner, alignment_from_logits, path_score
 from toucan_tpu_torch.models.embedding_gan import GanWrapper, ResNetG
+from toucan_tpu_torch.models.embedding_vae import EmbeddingVAE
 from toucan_tpu_torch.models.gst import StyleEmbedding
+from toucan_tpu_torch.models.stochastic_toucan_tts import StochasticToucanTTS
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig, fastspeech2_config
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 from toucan_tpu_torch.nn import positional
+from toucan_tpu_torch.train.loop import train_loop
+from toucan_tpu_torch.train.toucan_train import (ZERO_GRADIENTS, compute_gradients,
+                                                 create_train_state, make_train_step)
 from toucan_tpu_torch.utils.device import matmul_precision
 
 SEED = 0
@@ -2098,6 +2122,294 @@ def phase_controllable(iface, launches, card):
     iface.set_utterance_embedding(embedding=speaker)
 
 
+# phase_train: 48 seeded utterances of 40-120 phones at 1-12 frames each in
+# two languages, batch 24 (two steps an epoch, a checkpoint after each), the
+# glow from step 4 (postnet_start_steps 3), 8 steps, then a resumed run of
+# 2 more whose checkpoint at step 10 passes 3 x 3 and starts SWA into best.pt
+TRAIN_UTTERANCES = 48
+TRAIN_BATCH = 24
+TRAIN_GLOW_AFTER = 3
+TRAIN_STEPS = (7, 9)   # train_loop's ``steps`` of the first run and of the resumed one
+TRAIN_TIMED_STEPS = 4  # steps timed alone, without and with the glow, on one batch
+# the first step on the card against the CPU, at full width, dropout 0, on 2
+# utterances: sums in other orders through 12 conformer blocks, the glow and
+# the critic, forward and backward (the gradients in float64,
+# ``check_train_step_against_cpu``)
+TOL_TRAIN_LOSS = 1e-4       # relative, f32
+TOL_TRAIN_GRAD = 1e-4       # of each gradient tensor's own peak, float64
+TOL_TRAIN_STATS = 1e-5      # BatchNorm running statistics, f32
+# gradients that are 0 in exact arithmetic (``ZERO_GRADIENTS``): noise on
+# both sides, held below this share of the largest gradient
+TOL_ZERO_GRAD = 1e-6
+TOL_VAE = 1e-5
+STOCHASTIC_FRAMES = 1024
+
+
+def training_data(seed, n=TRAIN_UTTERANCES, mels=80):
+    """Seeded datapoints shaped like real utterances: 40-120 phones of
+    binary articulatory features, 1-12 frames a phone (~200-1000 mel
+    frames), a pitch and an energy per phone, two language ids."""
+    rng = np.random.RandomState(seed)
+    data = []
+    for i in range(n):
+        t = rng.randint(40, 121)
+        durations = rng.randint(1, 13, size=t)
+        frames = int(durations.sum())
+        data.append(dict(text=(rng.rand(t, 62) > 0.5).astype(np.float32),
+                         mel=(rng.randn(frames, mels) - 5.0).astype(np.float32),
+                         durations=durations,
+                         pitch=np.abs(1.0 + 0.3 * rng.randn(t, 1)).astype(np.float32),
+                         energy=np.abs(1.0 + 0.3 * rng.randn(t, 1)).astype(np.float32),
+                         lang_id=(12, 37)[i % 2]))
+    return data
+
+
+def first_step(cfg, gst_sd, batch, starts, device, dtype):
+    """(metrics, gradients, BatchNorm statistics) of the first step of a
+    fresh state (seed SEED, dropout 0, the critic) in ``dtype``."""
+    state = create_train_state(cfg, gst_sd, use_discriminator=True, device=device, seed=SEED)
+    state.model.conv_postnet.dropout_rate = 0.0   # no config field reaches it
+    for module in (state.model, state.disc, state.gst):
+        module.to(dtype)
+    tensors = {k: v.to(dtype) if v.is_floating_point() else v
+               for k, v in to_tensors(batch, device).items()}
+    with matmul_precision("float32"):
+        metrics = compute_gradients(state, tensors, run_glow=True, use_discriminator=True,
+                                    window_starts=starts.to(device))
+    params = [*state.model.named_parameters(),
+              *(("disc." + k, v) for k, v in state.disc.named_parameters())]
+    return ({k: v.item() for k, v in metrics.items()},
+            {k: p.grad.cpu().double() for k, p in params},
+            {k: b.cpu().double() for k, b in state.model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))})
+
+
+def gradient_errors(card, cpu):
+    """(each tensor's max error as a share of its peak, sorted worst
+    first; the ``ZERO_GRADIENTS``' largest magnitude as a share of the
+    largest gradient)."""
+    peak = max(g.abs().max().item() for g in cpu.values())
+    errs, zero = [], 0.0
+    for k, want in cpu.items():
+        if k.endswith(ZERO_GRADIENTS):
+            zero = max(zero, max(card[k].abs().max().item(), want.abs().max().item()) / peak)
+        else:
+            errs.append(((card[k] - want).abs().max().item()
+                         / max(want.abs().max().item(), 1e-300), k))
+    return sorted(errs, reverse=True), zero
+
+
+def check_train_step_against_cpu(dev, gst_sd, data, config):
+    """The first step at full width with dropout 0 on the 2 shortest
+    utterances, card against CPU under the "float32" policy, the critic's
+    windows at the same starts: in f32 the losses and the BatchNorm
+    statistics; the gradients in float64, where no ReLU or leaky-ReLU
+    input rounds to the other side of 0 on one device only (in f32 one
+    such flip moves a weight's gradient by one frame's share of its sum,
+    ~1e-3 of its peak at this width: the f32 errors are printed)."""
+    cfg = dataclasses.replace(config, dropout=0.0, duration_dropout=0.0, pitch_dropout=0.0,
+                              energy_dropout=0.0)
+    shortest = sorted(data, key=lambda d: len(d["mel"]))[:2]
+    batch = batching.pad_batch(shortest)
+    starts = torch.tensor([5, 17])
+    sides = {(dt, name): first_step(cfg, gst_sd, batch, starts, device, dt)
+             for dt in (torch.float32, torch.float64)
+             for name, device in (("card", dev), ("cpu", torch.device("cpu")))}
+    (m_card, g32_card, s_card), (m_cpu, g32_cpu, s_cpu) = (sides[torch.float32, "card"],
+                                                          sides[torch.float32, "cpu"])
+    loss_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30) for k in m_cpu)
+    stats_err = max((s_card[k] - s_cpu[k]).abs().max().item() for k in s_cpu)
+    errs32, _ = gradient_errors(g32_card, g32_cpu)
+    errs64, zero64 = gradient_errors(sides[torch.float64, "card"][1],
+                                     sides[torch.float64, "cpu"][1])
+    log("train", f"first step at full width, dropout 0, 2 utterances "
+                 f"({int(batch['speech_lengths'].sum())} frames), card against CPU: f32 losses "
+                 f"max rel err {loss_err:.3e} (tolerance {TOL_TRAIN_LOSS}), BatchNorm statistics "
+                 f"max abs err {stats_err:.3e} (tolerance {TOL_TRAIN_STATS}); float64 gradients "
+                 f"max err {errs64[0][0]:.3e} of their tensor's peak (at {errs64[0][1]}; "
+                 f"tolerance {TOL_TRAIN_GRAD}), the zero gradients within {zero64:.3e} of the "
+                 f"largest (tolerance {TOL_ZERO_GRAD}); f32 gradients, not held: "
+                 + ", ".join(f"{k} {e:.2e}" for e, k in errs32[:3]) + "; "
+                 + ", ".join(f"{k}={v:.5f}" for k, v in m_cpu.items()))
+    if not (loss_err <= TOL_TRAIN_LOSS and stats_err <= TOL_TRAIN_STATS
+            and errs64[0][0] <= TOL_TRAIN_GRAD and zero64 <= TOL_ZERO_GRAD):
+        raise AssertionError("the first train step on the card disagrees with the CPU")
+
+
+def phase_train(dev, voc_sd, gst_sd, launches, card, config=None):
+    """``train_loop`` at full width (the default ``ToucanTTSConfig``, the
+    GST frozen) on ``training_data``: batch 24 with the critic, the glow
+    joining at step 4, 8 steps, then ``resume=True`` for 2 more, whose
+    checkpoint starts SWA into ``best.pt``; ``best.pt`` (with the HiFiGAN
+    and GST weights as reference files) loads through
+    ``load.interface_from_torch`` into an interface that synthesizes
+    LONG_TEXT (K1 12 + K2 4 a synthesis).  No train step may launch a
+    kernel.  Prints the loop's step times (host clock), then the median of
+    TRAIN_TIMED_STEPS steps on one batch without and with the glow (the
+    critic in both), utterances/s and mel frames/s, the peak device memory,
+    and the profiler's top device items of one glow step; then
+    ``check_train_step_against_cpu``."""
+    t_phase = time.perf_counter()
+    config = config or ToucanTTSConfig()
+    data = training_data(SEED + 11)
+    marks = []
+
+    def mark(step, metrics):
+        marks.append((step, time.perf_counter(), metrics))
+        if not all(np.isfinite(v) for v in metrics.values()):
+            raise AssertionError(f"train step {step}: a loss is not finite: {metrics}")
+
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        save = os.path.join(tmp, "run")
+        common = dict(config=config, batch_size=TRAIN_BATCH, warmup_steps=8,
+                      postnet_start_steps=TRAIN_GLOW_AFTER, use_discriminator=True, log_every=1,
+                      callbacks=[mark], device=dev)
+        t0 = time.perf_counter()
+        state, _ = train_loop(data, gst_sd, save, steps=TRAIN_STEPS[0], **common)
+        first_s = time.perf_counter() - t0
+        state, _ = train_loop(data, gst_sd, save, steps=TRAIN_STEPS[1], resume=True, **common)
+        got = {k: w.launches for k, w in WRAPPERS.items()}
+        if any(got.values()):
+            raise AssertionError(f"train steps launched kernels: {got}")
+        steps = [m[0] for m in marks]
+        if steps != list(range(TRAIN_STEPS[0] + 1)) + [8, 9] or state.step != 10:
+            raise AssertionError(f"train_loop ran steps {steps} to {state.step}")
+        if not os.path.exists(os.path.join(save, "best.pt")):
+            raise AssertionError("SWA wrote no best.pt")
+        # in the loop, a step's time runs from the previous step's metrics
+        # read on the host to its own (each callback's read waits for its
+        # step); a step that opens an epoch also holds the checkpoint before it
+        in_loop = {s: marks[i][1] - marks[i - 1][1] for i, s in enumerate(steps)
+                   if i > 0 and s % (TRAIN_UTTERANCES // TRAIN_BATCH)}
+        log("train", f"first run: 8 steps and 4 checkpoints in {first_s:.2f} s; steps inside "
+                     "an epoch, host clock: " + ", ".join(
+                         f"{s}{' (glow)' if s > TRAIN_GLOW_AFTER else ''} {1e3 * t:.2f} ms"
+                         for s, t in in_loop.items()) + f" ({card})")
+        log("train", "losses at step 9: "
+                     + ", ".join(f"{k}={v:.4f}" for k, v in marks[-1][2].items()))
+        batch = to_tensors(batching.pad_batch(data[:TRAIN_BATCH]), dev)
+        log("train", f"timed steps on one batch of {TRAIN_BATCH}: {batch['text'].shape[1]} "
+                     f"phones, {batch['gold_speech'].shape[1]} frames padded, "
+                     f"{int(batch['speech_lengths'].sum())} real")
+        for glow in (False, True):
+            step = make_train_step(run_glow=glow, use_discriminator=True)
+            with matmul_precision("float32"):
+                ts = [timed(lambda: step(state, batch))[1] for _ in range(TRAIN_TIMED_STEPS)]
+            med = float(np.median(ts))
+            frames = int(batch["speech_lengths"].sum())
+            log("train", f"step {'with glow and critic' if glow else 'without glow, with critic'}"
+                         f": median {1e3 * med:.2f} ms of {len(ts)} ("
+                         + ", ".join(f"{1e3 * t:.2f}" for t in ts) + f"); "
+                         f"{TRAIN_BATCH / med:.2f} utterances/s, {frames / med:.0f} mel frames/s "
+                         f"({card})")
+        peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30 if dev.type == "cuda" else None
+        log("train", f"peak device memory over the phase's steps: "
+                     f"{'not measured' if peak_gb is None else f'{peak_gb:.3f} GiB'} "
+                     f"(torch.cuda.max_memory_allocated; {card})")
+        with matmul_precision("float32"), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, sec = timed(lambda: step(state, batch))
+        report_profile(prof, sec * 1e6, "train", "one glow step with the critic")
+        if any(w.launches for w in WRAPPERS.values()):
+            raise AssertionError("a train step launched a kernel")
+        del state, batch
+
+        paths = [os.path.join(save, "best.pt"), os.path.join(tmp, "vocoder.pt"),
+                 os.path.join(tmp, "embedding_function.pt")]
+        torch.save({"generator": voc_sd}, paths[1])
+        torch.save({"style_emb_func": gst_sd}, paths[2])
+        iface = interface_from_torch(*paths, seed=SEED)
+    wave = drive("train best.pt call", lambda: iface(LONG_TEXT), iface, dict(k1=12, k2=4),
+                 launches)
+    log("train", f"best.pt synthesized {len(wave) / 24000:.3f} s of audio")
+    del iface
+    check_train_step_against_cpu(dev, gst_sd, data, config)
+    log("train", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def phase_stochastic(dev, launches, card, config=None):
+    """``StochasticToucanTTS`` at full width (the default config; seeded
+    weights, the flows' ``proj`` convs and affines away from their zero
+    init so every spline is live) on LONG_TEXT's ~110 phones with injected
+    flow and glow noise: ``infer`` on the card (K1 12: 6 encoder and 6
+    decoder blocks) against the CPU, durations equal and the mels within
+    TOL_REF; then one ``EmbeddingVAE`` loss and one sample, card against
+    CPU within TOL_VAE."""
+    t0 = time.perf_counter()
+    config = config or ToucanTTSConfig()
+    torch.manual_seed(SEED + 21)
+    cpu = StochasticToucanTTS(config).eval()
+    with torch.no_grad():
+        for name, p in cpu.named_parameters():
+            if "_flow." in name and (".proj." in name or ".flows.0." in name):
+                p.copy_(0.05 * torch.randn_like(p))
+    model = copy.deepcopy(cpu).to(dev)
+    feats = TextFrontend(language="en").string_to_features(LONG_TEXT)
+    n = len(feats)
+    rng = np.random.RandomState(SEED + 22)
+    x = np.zeros((1, _round_up(n, PHONE_BUCKET), feats.shape[1]), np.float32)
+    x[0, :n] = feats
+    utt = rng.randn(1, 64).astype(np.float32)
+    flow_noise = [rng.randn(1, x.shape[1], 2).astype(np.float32) for _ in range(3)]
+    glow_noise = (0.8 * rng.randn(1, STOCHASTIC_FRAMES, 80)).astype(np.float32)
+    outs = {}
+    # the card twice: its first call (with the library's first-use costs) and a steady one
+    for name, m, d in (("card, first", model, dev), ("card", model, dev),
+                       ("cpu", cpu, torch.device("cpu"))):
+        args = dict(utterance_embedding=torch.tensor(utt, device=d),
+                    lang_ids=torch.tensor([[12]], device=d),
+                    glow_noise=torch.tensor(glow_noise, device=d),
+                    flow_noise=[torch.tensor(z, device=d) for z in flow_noise])
+        for wrapper in WRAPPERS.values():
+            wrapper.launches = 0
+        with matmul_precision("float32"):
+            res, sec = timed(lambda: m.infer(torch.tensor(x, device=d), torch.tensor([n], device=d),
+                                             STOCHASTIC_FRAMES, **args))
+        counts = {k: w.launches for k, w in WRAPPERS.items()}
+        outs[name] = [r.cpu().numpy() for r in res]
+        if name != "cpu":
+            expect = per_synthesis(1, k1=12)
+            want = {k: expect.get(k, 0) for k in WRAPPERS}
+            log("stochastic", f"infer ({name}) on {n} phones, {STOCHASTIC_FRAMES} frames: "
+                              f"{1e3 * sec:.2f} ms, host clock ({card}); "
+                              + " ".join(f"{k}_launches={c}" for k, c in counts.items()))
+            if counts != want:
+                raise AssertionError(f"stochastic infer: expected launches {want}, got {counts}")
+            launches["k1"] += counts["k1"]
+    dur_card, dur_cpu = outs["card"][2], outs["cpu"][2]
+    if not np.array_equal(dur_card, dur_cpu):
+        raise AssertionError("stochastic durations differ between the card and the CPU")
+    mel_err = max(np.abs(outs["card"][i] - outs["cpu"][i]).max() for i in (0, 1))
+    log("stochastic", f"card against CPU: durations equal ({int(dur_cpu.sum())} frames, "
+                      f"{int(dur_cpu.min())}-{int(dur_cpu.max())} a phone), mel max_abs_err="
+                      f"{mel_err:.3e} (tolerance {TOL_REF})")
+    if not (mel_err <= TOL_REF and dur_cpu.max() > 1):
+        raise AssertionError("the stochastic model on the card disagrees with the CPU")
+
+    torch.manual_seed(SEED + 23)
+    vae_cpu = EmbeddingVAE()
+    vae = copy.deepcopy(vae_cpu).to(dev)
+    target = rng.randn(4, 64).astype(np.float32)
+    eps, z = rng.randn(4, 16).astype(np.float32), rng.randn(1, 16).astype(np.float32)
+    errs = []
+    with torch.no_grad(), matmul_precision("float32"):
+        got = vae(torch.tensor(target, device=dev), noise=torch.tensor(eps, device=dev))
+        want = vae_cpu(torch.tensor(target), noise=torch.tensor(eps))
+        errs += [(g.cpu() - w).abs().max().item() for g, w in zip(got, want)]
+        got = vae(noise=torch.tensor(z, device=dev))
+        errs.append((got.cpu() - vae_cpu(noise=torch.tensor(z))).abs().max().item())
+    log("stochastic", f"EmbeddingVAE card against CPU: reconstruction, KL, loss, sample max "
+                      f"abs errs {', '.join(f'{e:.3e}' for e in errs)} (tolerance {TOL_VAE}); "
+                      f"phase wall time {time.perf_counter() - t0:.1f} s ({card})")
+    if not max(errs) <= TOL_VAE:
+        raise AssertionError("the EmbeddingVAE on the card disagrees with the CPU")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2194,6 +2506,8 @@ def main():
     phase_ref("imcol int8 hifigan", imcol, cpu_imcol, TOL_REF_INT8, relative=True)
     del imcol, cpu_imcol
     phase_fastspeech2(launches, smi)
+    phase_stochastic(dev, launches, smi)
+    phase_train(dev, voc_sd, gst_sd, launches, smi)
     log("main", f"launches over the main-path phases: {launches}")
 
     kernels = [

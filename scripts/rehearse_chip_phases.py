@@ -2,10 +2,12 @@
 """Rehearse ``chip_smoke.py``'s later phases on the CPU.
 
 Runs ``phase_clone``, ``phase_controllable``, ``phase_main_bf16`` (HiFiGAN
-and BigVGAN), ``phase_precision`` and ``phase_fastspeech2`` on tiny models
-(the tiny ToucanTTS of the port's tests, 64-channel vocoders, an aligner of
-conv 64 and BiLSTM 32, 2000 PCA samples, ``fastspeech2_config`` at one
-block a side) with the kernels' plain versions, so that a wrong path,
+and BigVGAN), ``phase_precision``, ``phase_fastspeech2``,
+``phase_stochastic`` and ``phase_train`` on tiny models (the tiny ToucanTTS
+of the port's tests, also as the stochastic model and the trainer's,
+64-channel vocoders, an aligner of conv 64 and BiLSTM 32, 2000 PCA
+samples, ``fastspeech2_config`` at one block a side) with the kernels'
+plain versions, on the CPU (the training data and batch keep their sizes), so that a wrong path,
 argument or shape shows before the card is asked.  Launch counts are not
 checked (on the CPU every count stays 0), no graph is replayed, and every
 time it prints is the CPU's, not the card's.
@@ -26,6 +28,7 @@ from toucan_tpu_torch import load  # noqa: E402
 from toucan_tpu_torch.infer.interface import VOCODERS, ToucanTTSInterface  # noqa: E402
 from toucan_tpu_torch.models.aligner import Aligner  # noqa: E402
 from toucan_tpu_torch.models.embedding_gan import GanWrapper  # noqa: E402
+from toucan_tpu_torch.models.gst import StyleEmbedding  # noqa: E402
 from toucan_tpu_torch.models.toucan_tts import (ToucanTTS, ToucanTTSConfig,  # noqa: E402
                                                 fastspeech2_config)
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN  # noqa: E402
@@ -79,7 +82,12 @@ def main():
                             chip_smoke.BF16_BIGVGAN, launches, "CPU")),
                         ("precision", lambda: chip_smoke.phase_precision(
                             tts_sd, voc_sd, iface, launches, "CPU")),
-                        ("fastspeech2", lambda: chip_smoke.phase_fastspeech2(launches, "CPU"))):
+                        ("fastspeech2", lambda: chip_smoke.phase_fastspeech2(launches, "CPU")),
+                        ("stochastic", lambda: chip_smoke.phase_stochastic(
+                            torch.device("cpu"), launches, "CPU", config=TINY)),
+                        ("train", lambda: chip_smoke.phase_train(
+                            torch.device("cpu"), voc_sd, StyleEmbedding().state_dict(), launches,
+                            "CPU", config=TINY))):
         t0 = time.perf_counter()
         phase()
         print(f"rehearsal: phase_{name} passed in {time.perf_counter() - t0:.1f} s (CPU)")

@@ -31,6 +31,14 @@ def tile_to_fixed_frames(spec: torch.Tensor, length: int) -> torch.Tensor:
     return spec[idx]
 
 
+def tile_batch(specs: torch.Tensor, lengths) -> torch.Tensor:
+    """``tile_to_fixed_frames`` of each row of (B, L, 80) with its length,
+    (B,) of ints or a tensor, without reading the lengths on the host."""
+    lengths = torch.as_tensor(lengths, device=specs.device).to(torch.int64).clamp(min=1)
+    idx = torch.arange(GST_FRAMES, device=specs.device)[None] % lengths[:, None]
+    return torch.gather(specs, 1, idx[..., None].expand(-1, -1, specs.shape[-1]))
+
+
 class ReferenceEncoder(nn.Module):
     def __init__(self):
         super().__init__()
@@ -100,7 +108,6 @@ class StyleEmbedding(nn.Module):
                 return_only_refs: bool = False) -> torch.Tensor:
         """(B, L, 80), (B,) true lengths -> (B, 64), or the reference
         encoder's (B, 256) with ``return_only_refs``."""
-        tiled = torch.stack([tile_to_fixed_frames(s, n)
-                             for s, n in zip(spectrograms, spectrogram_lengths)])
+        tiled = tile_batch(spectrograms, spectrogram_lengths)
         refs = self.gst.ref_enc(tiled)
         return refs if return_only_refs else self.gst.stl(refs)

@@ -1,9 +1,11 @@
-"""ToucanTTS acoustic model (FastSpeech-2 family, conformer-based), inference.
+"""ToucanTTS acoustic model (FastSpeech-2 family, conformer-based).
 
-Counterpart of ``toucan_tpu/models/toucan_tts.py``; reference
-``InferenceInterfaces/InferenceArchitectures/InferenceToucanTTS.py:183-250``.
-Callers pass padded inputs, lengths and the padded output length
-``max_frames``; masks keep each row equal to its exact-length run.
+Counterpart of ``toucan_tpu/models/toucan_tts.py``: ``forward`` is the
+teacher-forced training pass (JAX ``ToucanTTS.__call__``), ``infer`` the
+synthesis (reference
+``InferenceInterfaces/InferenceArchitectures/InferenceToucanTTS.py:183-250``).
+Callers pass padded inputs, lengths and, to ``infer``, the padded output
+length ``max_frames``; masks keep each row equal to its exact-length run.
 Parameter names are the reference's state-dict keys.
 
 ``ToucanTTSConfig.dtype`` is the compute dtype, as the JAX config's: with
@@ -47,15 +49,19 @@ class ToucanTTSConfig:
     dec_layers: int = 6
     dec_units: int = 1536
     dec_kernel: int = 31
+    dropout: float = 0.2
     duration_layers: int = 3
     duration_chans: int = 256
     duration_kernel: int = 3
+    duration_dropout: float = 0.2
     pitch_layers: int = 7
     pitch_chans: int = 256
     pitch_kernel: int = 5
+    pitch_dropout: float = 0.5
     energy_layers: int = 2
     energy_chans: int = 256
     energy_kernel: int = 3
+    energy_dropout: float = 0.5
     utt_embed_dim: Optional[int] = 64
     lang_embs: Optional[int] = 8000
     glow_blocks: int = 18
@@ -86,27 +92,88 @@ class ToucanTTS(nn.Module):
         self.encoder = Conformer(c.adim, c.aheads, c.enc_units, c.enc_layers, c.enc_kernel,
                                  use_input_embedding=True, input_features=c.input_features,
                                  use_output_norm=True, utt_embed_dim=c.utt_embed_dim,
-                                 lang_embs=c.lang_embs)
+                                 lang_embs=c.lang_embs, dropout_rate=c.dropout)
         # unconditional predictors even where the encoder takes an utterance
         # embedding (toucan_tpu/models/toucan_tts.py:93)
         pred_utt_dim = c.utt_embed_dim if c.conditional_predictors else None
         self.duration_predictor = DurationPredictor(c.adim, c.duration_layers, c.duration_chans,
-                                                    c.duration_kernel, pred_utt_dim)
+                                                    c.duration_kernel, pred_utt_dim,
+                                                    c.duration_dropout)
         self.pitch_predictor = VariancePredictor(c.adim, c.pitch_layers, c.pitch_chans,
-                                                 c.pitch_kernel, pred_utt_dim)
+                                                 c.pitch_kernel, pred_utt_dim, c.pitch_dropout)
         self.energy_predictor = VariancePredictor(c.adim, c.energy_layers, c.energy_chans,
-                                                  c.energy_kernel, pred_utt_dim)
+                                                  c.energy_kernel, pred_utt_dim, c.energy_dropout)
         self.pitch_embed = nn.Sequential(nn.Conv1d(1, c.adim, 1))
         self.energy_embed = nn.Sequential(nn.Conv1d(1, c.adim, 1))
         self.decoder = Conformer(c.adim, c.aheads, c.dec_units, c.dec_layers, c.dec_kernel,
-                                 use_input_embedding=False, use_output_norm=False)
+                                 use_input_embedding=False, use_output_norm=False,
+                                 dropout_rate=c.dropout)
         self.feat_out = nn.Linear(c.adim, c.mel_channels)
+        # at PostNet's own rate, 0.5, which no config field reaches, as the JAX
+        # model builds it (toucan_tpu/models/toucan_tts.py:111)
         self.conv_postnet = PostNet(c.mel_channels)
         if c.use_postflow:
             self.post_flow = Glow(c.mel_channels, c.glow_hidden, c.glow_kernel,
                                   n_blocks=c.glow_blocks, n_layers=c.glow_layers,
                                   n_sqz=c.glow_sqz, text_condition_channels=c.adim)
         self.to(c.dtype)
+
+    def forward(self, text, text_lengths, gold_speech, speech_lengths, gold_durations,
+                gold_pitch, gold_energy, utterance_embedding=None, lang_ids=None,
+                run_glow: bool = True, deterministic=None, train=None):
+        """The teacher-forced training pass (JAX ``ToucanTTS.__call__``,
+        ``toucan_tpu/models/toucan_tts.py:122-176``).
+
+        text (B, T, 62); text_lengths (B,); gold_speech (B, L, 80);
+        speech_lengths (B,); gold_durations (B, T); gold_pitch and
+        gold_energy (B, T, 1); utterance_embedding (B, E); lang_ids (B, 1).
+        ``deterministic`` (no dropout) and ``train`` (BatchNorm on batch
+        statistics, updating its running ones) default to the module's
+        mode: ``model.train()`` gives JAX's training call
+        (``deterministic=False, train=True``).  Attention then takes its
+        plain path, never the kernel.
+
+        Returns (before_outs, after_outs, log-duration predictions (B, T),
+        pitch and energy predictions (B, T, 1), glow loss or None).  As in
+        JAX, the pitch predictor sees detached encodings and the glow a
+        detached ``after_outs`` and ``upsampled``.
+        """
+        cfg = self.config
+        if deterministic is None:
+            deterministic = not self.training
+        if train is None:
+            train = self.training
+        tmax, lmax = text.shape[1], gold_speech.shape[1]
+        if utterance_embedding is not None:
+            utterance_embedding = F.normalize(utterance_embedding, dim=-1)
+        text_mask = make_non_pad_mask(text_lengths, tmax)
+        padding_mask = ~text_mask
+        encoded = self.encoder(text, text_mask[:, None, :], utterance_embedding=utterance_embedding,
+                               lang_ids=lang_ids, deterministic=deterministic, train=train)
+
+        pitch_pred = self.pitch_predictor(encoded.detach(), utterance_embedding,
+                                          padding_mask=padding_mask[..., None],
+                                          deterministic=deterministic)
+        energy_pred = self.energy_predictor(encoded, utterance_embedding,
+                                            padding_mask=padding_mask[..., None],
+                                            deterministic=deterministic)
+        duration_pred = self.duration_predictor.log_durations(
+            encoded, utterance_embedding, padding_mask, deterministic)
+
+        enriched = encoded + conv_btc(self.energy_embed[0], gold_energy) \
+            + conv_btc(self.pitch_embed[0], gold_pitch)
+        upsampled = length_regulate(enriched, gold_durations, lmax)
+        speech_mask = make_non_pad_mask(speech_lengths, lmax)
+        decoded = self.decoder(upsampled, speech_mask[:, None, :], deterministic=deterministic,
+                               train=train)
+        before_outs = self.feat_out(decoded)
+        after_outs = before_outs + self.conv_postnet(before_outs, deterministic=deterministic)
+
+        glow_loss = None
+        if run_glow and cfg.use_postflow:
+            glow_loss = self.post_flow.loss(gold_speech, after_outs.detach(), upsampled.detach(),
+                                            speech_mask[..., None].to(before_outs.dtype))
+        return before_outs, after_outs, duration_pred, pitch_pred, energy_pred, glow_loss
 
     @torch.no_grad()
     def infer(self, text, text_lengths, max_frames: int, utterance_embedding=None,

@@ -20,24 +20,33 @@ from toucan_tpu_torch.nn.positional import rel_positional_encoding
 
 
 class ConformerBlock(nn.Module):
-    def __init__(self, size: int, attention_heads: int, linear_units: int, cnn_kernel: int):
+    def __init__(self, size: int, attention_heads: int, linear_units: int, cnn_kernel: int,
+                 dropout_rate: float = 0.0):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.norm_ff_macaron = LayerNorm(size)
-        self.feed_forward_macaron = ConvFeedForward(size, linear_units)
+        self.feed_forward_macaron = ConvFeedForward(size, linear_units, dropout_rate)
         self.norm_mha = LayerNorm(size)
-        self.self_attn = RelPositionMultiHeadedAttention(attention_heads, size)
+        self.self_attn = RelPositionMultiHeadedAttention(attention_heads, size, dropout_rate)
         self.norm_conv = LayerNorm(size)
         self.conv_module = ConformerConvModule(size, cnn_kernel)
         self.norm_ff = LayerNorm(size)
-        self.feed_forward = ConvFeedForward(size, linear_units)
+        self.feed_forward = ConvFeedForward(size, linear_units, dropout_rate)
         self.norm_final = LayerNorm(size)
 
-    def forward(self, x, pos_emb, mask=None, conv_mask=None):
-        x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x))
+    def forward(self, x, pos_emb, mask=None, conv_mask=None, deterministic: bool = True,
+                train: bool = False):
+        """``deterministic=False`` turns dropout on (and takes attention's
+        training path), ``train=True`` the BatchNorm's batch statistics: the
+        JAX block's two flags (``toucan_tpu/nn/conformer.py:43``)."""
+        def drop(y):
+            return y if deterministic else F.dropout(y, self.dropout_rate)
+
+        x = x + 0.5 * drop(self.feed_forward_macaron(self.norm_ff_macaron(x), deterministic))
         y = self.norm_mha(x)
-        x = x + self.self_attn(y, y, y, pos_emb, mask)
-        x = x + self.conv_module(self.norm_conv(x), mask=conv_mask)
-        x = x + 0.5 * self.feed_forward(self.norm_ff(x))
+        x = x + drop(self.self_attn(y, y, y, pos_emb, mask, deterministic))
+        x = x + drop(self.conv_module(self.norm_conv(x), mask=conv_mask, train=train))
+        x = x + 0.5 * drop(self.feed_forward(self.norm_ff(x), deterministic))
         return self.norm_final(x)
 
 
@@ -46,9 +55,14 @@ class Conformer(nn.Module):
                  linear_units: int = 1536, num_blocks: int = 6, cnn_kernel: int = 7,
                  use_input_embedding: bool = False, input_features: int = 62,
                  input_embedding_hidden: int = 100, use_output_norm: bool = True,
-                 utt_embed_dim: Optional[int] = None, lang_embs: Optional[int] = None):
+                 utt_embed_dim: Optional[int] = None, lang_embs: Optional[int] = None,
+                 dropout_rate: float = 0.0):
+        """``dropout_rate`` is the JAX conformer's dropout, positional and
+        attention dropout rates at once: ``ToucanTTS`` gives all three one
+        value."""
         super().__init__()
         self.attention_dim = attention_dim
+        self.dropout_rate = dropout_rate
         if use_input_embedding:
             self.embed = nn.Sequential(nn.Linear(input_features, input_embedding_hidden),
                                        nn.Tanh(),
@@ -56,24 +70,26 @@ class Conformer(nn.Module):
         if lang_embs is not None:
             self.language_embedding = nn.Embedding(lang_embs, attention_dim)
         self.encoders = nn.ModuleList(
-            ConformerBlock(attention_dim, attention_heads, linear_units, cnn_kernel)
+            ConformerBlock(attention_dim, attention_heads, linear_units, cnn_kernel, dropout_rate)
             for _ in range(num_blocks))
         if use_output_norm:
             self.output_norm = LayerNorm(attention_dim)
         if utt_embed_dim is not None:
             self.hs_emb_projection = nn.Linear(attention_dim + utt_embed_dim, attention_dim)
 
-    def forward(self, xs, mask=None, utterance_embedding=None, lang_ids=None, conv_mask=None):
+    def forward(self, xs, mask=None, utterance_embedding=None, lang_ids=None, conv_mask=None,
+                deterministic: bool = True, train: bool = False):
         """xs (B, T, idim); mask (B, 1, T) bool, True on real frames, or None;
         lang_ids (B, 1); conv_mask (B, T, 1) zeroes padded frames before each
-        depthwise conv."""
+        depthwise conv; ``deterministic`` and ``train`` as ``ConformerBlock``'s."""
         if hasattr(self, "embed"):
             xs = self.embed(xs)
         if hasattr(self, "language_embedding") and lang_ids is not None:
             xs = xs + self.language_embedding(lang_ids)
-        xs, pos_emb = rel_positional_encoding(xs, self.attention_dim)
+        xs, pos_emb = rel_positional_encoding(xs, self.attention_dim, self.dropout_rate,
+                                              deterministic)
         for block in self.encoders:
-            xs = block(xs, pos_emb, mask, conv_mask)
+            xs = block(xs, pos_emb, mask, conv_mask, deterministic, train)
         if hasattr(self, "output_norm"):
             xs = self.output_norm(xs)
         if hasattr(self, "hs_emb_projection") and utterance_embedding is not None:

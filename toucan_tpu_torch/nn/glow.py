@@ -1,4 +1,4 @@
-"""PortaSpeech-style normalizing-flow PostNet (Glow), reverse pass.
+"""PortaSpeech-style normalizing-flow PostNet (Glow).
 
 Reference: ``TrainingInterfaces/Text_to_Spectrogram/ToucanTTS/Glow.py``.
 Time is squeezed by 2 into channels, then 18 blocks of [ActNorm,
@@ -9,6 +9,8 @@ blocks (the same module objects, so a state dict lists them under each
 block, as the reference's does); ``cond_layer``, ``start`` and ``end`` are
 per block.  Everything is (B, T, C), with the JAX package's channel order.
 """
+
+import math
 
 import torch
 from torch import nn
@@ -37,6 +39,12 @@ class ActNorm(nn.Module):
         super().__init__()
         self.logs = nn.Parameter(torch.zeros(1, channels, 1))
         self.bias = nn.Parameter(torch.zeros(1, channels, 1))
+
+    def forward(self, x, mask):
+        """-> (z, log-det (B,))."""
+        logs = self.logs.view(-1)
+        z = (self.bias.view(-1) + torch.exp(logs) * x) * mask
+        return z, logs.sum() * mask.sum(dim=(1, 2))
 
     def reverse(self, x, mask):
         return (x - self.bias.view(-1)) * torch.exp(-self.logs.view(-1)) * mask
@@ -67,17 +75,26 @@ class InvConvNear(nn.Module):
         upper = self.u * l_mask.T + torch.diag(self.sign_s * torch.exp(self.log_s))
         return self.p @ lower @ upper
 
-    def reverse(self, x, mask):
+    def _mix(self, x, weight, mask):
         b, t, c = x.shape
         ns, nq = self.n_split, self.n_sqz
         x = x.reshape(b, t, nq, c // ns, ns // nq).permute(0, 1, 2, 4, 3).reshape(b, t, ns, c // ns)
+        z = torch.einsum("btgk,hg->bthk", x, weight)
+        z = z.reshape(b, t, nq, ns // nq, c // ns).permute(0, 1, 2, 4, 3).reshape(b, t, c)
+        return z * mask
+
+    def forward(self, x, mask):
+        """-> (z, log-det (B,)): sum(log_s) (c / n_split) per real frame."""
+        c = x.shape[-1]
+        logdet = self.log_s.sum() * (c / self.n_split) * mask.sum(dim=(1, 2))
+        return self._mix(x, self.weight(), mask), logdet
+
+    def reverse(self, x, mask):
         # inv_ex: no singularity check, so no device sync on the hot path;
         # in f32 whatever the model's dtype, as JAX inverts it
         # (toucan_tpu/nn/glow.py:119), and torch.linalg has no bf16 inverse
         weight = torch.linalg.inv_ex(self.weight().float()).inverse.to(x.dtype)
-        z = torch.einsum("btgk,hg->bthk", x, weight)
-        z = z.reshape(b, t, nq, ns // nq, c // ns).permute(0, 1, 2, 4, 3).reshape(b, t, c)
-        return z * mask
+        return self._mix(x, weight, mask)
 
 
 class WN(nn.Module):
@@ -126,11 +143,21 @@ class CouplingBlock(nn.Module):
         nn.init.zeros_(self.end.bias)
         self.wn = WN(hidden, kernel_size, dilation_rate, n_layers, gin_channels, shared_wn)
 
-    def reverse(self, x, mask, g):
-        x_0, x_1 = x[..., :self.half], x[..., self.half:]
+    def _scale_shift(self, x_0, mask, g):
         h = conv_btc(self.start, x_0) * mask
         out = conv_btc(self.end, self.wn(h, mask, g))
-        m, logs = out[..., :self.half], out[..., self.half:]
+        return out[..., :self.half], out[..., self.half:]
+
+    def forward(self, x, mask, g):
+        """-> (z, log-det (B,))."""
+        x_0, x_1 = x[..., :self.half], x[..., self.half:]
+        m, logs = self._scale_shift(x_0, mask, g)
+        z_1 = (m + torch.exp(logs) * x_1) * mask
+        return torch.cat([x_0, z_1], dim=-1), (logs * mask).sum(dim=(1, 2))
+
+    def reverse(self, x, mask, g):
+        x_0, x_1 = x[..., :self.half], x[..., self.half:]
+        m, logs = self._scale_shift(x_0, mask, g)
         return torch.cat([x_0, (x_1 - m) * torch.exp(-logs) * mask], dim=-1)
 
 
@@ -141,6 +168,7 @@ class Glow(nn.Module):
                  text_condition_channels: int = 192, share_wn_layers: int = 4):
         super().__init__()
         self.n_sqz = n_sqz
+        self.in_channels = in_channels
         self.g_proj = same_conv(in_channels + text_condition_channels,
                                 text_condition_channels, 5)
         sq_ch = in_channels * n_sqz
@@ -152,6 +180,36 @@ class Glow(nn.Module):
             self.flows.append(CouplingBlock(sq_ch, hidden_channels, kernel_size,
                                             dilation_rate, n_layers,
                                             text_condition_channels * n_sqz, shared))
+
+    def flow(self, x, nonpadding, g):
+        """The forward pass over [mel, text] features ``g`` (already
+        projected): x (B, T, 80) -> (z (B, T', 80), log-det (B,)), T' the
+        even part of T."""
+        x, mask_sq = squeeze(x, nonpadding, self.n_sqz)
+        g, _ = squeeze(g, nonpadding, self.n_sqz)
+        logdet = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+        for i in range(0, len(self.flows), 3):
+            x, ld_act = self.flows[i](x, mask_sq)                 # actnorm
+            x, ld_inv = self.flows[i + 1](x, mask_sq)             # invconv
+            x, ld_cpl = self.flows[i + 2](x, mask_sq, g)          # coupling
+            logdet = logdet + ld_act + ld_inv + ld_cpl
+        x, _ = unsqueeze(x, mask_sq, self.n_sqz)
+        return x, logdet
+
+    def loss(self, tgt_mels, mel_out, encoded_texts, nonpadding):
+        """The training NLL (reference ``Glow.forward`` with infer=False,
+        ``toucan_tpu/nn/glow.py:259-272``).
+
+        tgt_mels/mel_out (B, T, 80), encoded_texts (B, T, D), nonpadding
+        (B, T, 1) float.  The N(0, 1) log-prob is averaged over every
+        element, padding included, as the reference does; the condition is
+        not masked (only ``sample`` zeroes its padded frames).
+        """
+        g = conv_btc(self.g_proj, torch.cat([mel_out, encoded_texts], dim=-1))
+        z, logdet = self.flow(tgt_mels, nonpadding, g)
+        logdet = logdet / nonpadding.sum(dim=(1, 2)) / self.in_channels
+        log_p = -0.5 * (z ** 2 + math.log(2.0 * math.pi))
+        return -log_p.mean() - logdet.mean()
 
     def sample(self, z, mel_out, encoded_texts, nonpadding):
         """Reverse pass: noise z (B, T, 80) -> refined mel (B, T, 80).

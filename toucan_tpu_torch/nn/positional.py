@@ -14,6 +14,7 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from toucan_tpu_torch.kernels import build
 
@@ -37,9 +38,14 @@ def _cached_table(length: int, d_model: int, device: torch.device,
         return relative_position_encoding(length, d_model, device).to(dtype)
 
 
-def rel_positional_encoding(x: torch.Tensor, d_model: int):
+def rel_positional_encoding(x: torch.Tensor, d_model: int, dropout_rate: float = 0.0,
+                            deterministic: bool = True):
     """Scale the (B, T, D) input and return it with its (cached, shared,
     read-only) position table in x's dtype (JAX makes it in f32 and casts
-    it to the model's dtype)."""
-    return x * math.sqrt(d_model), build.hold(_cached_table(x.shape[-2], d_model, x.device,
-                                                            x.dtype))
+    it to the model's dtype).  Unless ``deterministic``, both go through
+    dropout, each with its own draw (``toucan_tpu/nn/positional.py:39``)."""
+    x = x * math.sqrt(d_model)
+    table = build.hold(_cached_table(x.shape[-2], d_model, x.device, x.dtype))
+    if deterministic:
+        return x, table
+    return F.dropout(x, dropout_rate), F.dropout(table, dropout_rate)

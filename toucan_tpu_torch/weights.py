@@ -6,8 +6,10 @@ arrays and return the port's ``state_dict``, whose keys are the reference
 IMS-Toucan ones.  They invert ``toucan_tpu/compat/torch_toucan.py::
 convert_toucan_tts``, ``compat/torch_vocoder.py::convert_hifigan`` /
 ``convert_bigvgan``, ``compat/torch_gst.py::convert_style_embedding``,
-``compat/torch_aligner.py::convert_aligner`` and
-``compat/torch_gan.py::convert_resnet_g``:
+``compat/torch_aligner.py::convert_aligner``,
+``compat/torch_gan.py::convert_resnet_g`` and
+``compat/torch_stochastic.py::convert_stochastic_toucan_tts``, and give the
+spectrogram discriminator, the embedding VAE and a JAX train state theirs:
 only layouts change (flax (k, in, out) conv kernels and (in, out) dense
 kernels become torch (out, in, k) and (out, in)), never values.  No JAX
 is needed to call them.
@@ -116,33 +118,160 @@ def toucan_tts_from_jax(variables, share_wn_layers: int = 4) -> dict:
     w.conv("pitch_embed.0", params["pitch_embed"])
     w.conv("energy_embed.0", params["energy_embed"])
     w.linear("feat_out", params["feat_out"])
+    _postnet_and_glow(w, params, buffers, share_wn_layers)
+    return w.sd
+
+
+def _postnet_and_glow(w: _Writer, params, buffers, share_wn_layers: int):
     post = params["conv_postnet"]
     for i in range(_count(post, "conv_")):
         w.conv(f"conv_postnet.postnet.{i}.0", post[f"conv_{i}"])
         w.norm(f"conv_postnet.postnet.{i}.1", post[f"gn_{i}"])
-    if "post_flow" in params:
-        gp, gb = params["post_flow"], buffers["post_flow"]
-        w.conv("post_flow.g_proj", gp["g_proj"])
-        n_blocks = _count(gp, "actnorm_")
-        for b in range(n_blocks):
-            an = gp[f"actnorm_{b}"]
-            w.sd[f"post_flow.flows.{3 * b}.logs"] = _t(an["logs"]).reshape(1, -1, 1)
-            w.sd[f"post_flow.flows.{3 * b}.bias"] = _t(an["bias"]).reshape(1, -1, 1)
-            base = f"post_flow.flows.{3 * b + 1}"
-            for name in ("p", "sign_s"):
-                w.sd[f"{base}.{name}"] = _t(gb[f"invconv_{b}"][name])
-            for name in ("l", "log_s", "u"):
-                w.sd[f"{base}.{name}"] = _t(gp[f"invconv_{b}"][name])
-            base = f"post_flow.flows.{3 * b + 2}"
-            cp = gp[f"coupling_{b}"]
-            w.conv(f"{base}.start", cp["start"])
-            w.conv(f"{base}.end", cp["end"])
-            w.conv(f"{base}.wn.cond_layer", cp["cond_layer"])
-            core = gp[f"wn_core_{b // share_wn_layers}"]
-            for i in range(_count(core, "in_")):
-                w.conv(f"{base}.wn.in_layers.{i}", core[f"in_{i}"])
-                w.conv(f"{base}.wn.res_skip_layers.{i}", core[f"res_skip_{i}"])
+    if "post_flow" not in params:
+        return
+    gp, gb = params["post_flow"], buffers["post_flow"]
+    w.conv("post_flow.g_proj", gp["g_proj"])
+    for b in range(_count(gp, "actnorm_")):
+        an = gp[f"actnorm_{b}"]
+        w.sd[f"post_flow.flows.{3 * b}.logs"] = _t(an["logs"]).reshape(1, -1, 1)
+        w.sd[f"post_flow.flows.{3 * b}.bias"] = _t(an["bias"]).reshape(1, -1, 1)
+        base = f"post_flow.flows.{3 * b + 1}"
+        for name in ("p", "sign_s"):
+            w.sd[f"{base}.{name}"] = _t(gb[f"invconv_{b}"][name])
+        for name in ("l", "log_s", "u"):
+            w.sd[f"{base}.{name}"] = _t(gp[f"invconv_{b}"][name])
+        base = f"post_flow.flows.{3 * b + 2}"
+        cp = gp[f"coupling_{b}"]
+        w.conv(f"{base}.start", cp["start"])
+        w.conv(f"{base}.end", cp["end"])
+        w.conv(f"{base}.wn.cond_layer", cp["cond_layer"])
+        core = gp[f"wn_core_{b // share_wn_layers}"]
+        for i in range(_count(core, "in_")):
+            w.conv(f"{base}.wn.in_layers.{i}", core[f"in_{i}"])
+            w.conv(f"{base}.wn.res_skip_layers.{i}", core[f"res_skip_{i}"])
+
+
+def _dds_conv(w: _Writer, key, p):
+    for i in range(_count(p, "sep_")):
+        w.conv(f"{key}.convs_sep.{i}", p[f"sep_{i}"])
+        w.conv(f"{key}.convs_1x1.{i}", p[f"pw_{i}"])
+        for n in (1, 2):
+            ln = p[f"norm{n}_{i}"]["ln"]
+            w.sd[f"{key}.norms_{n}.{i}.gamma"] = _t(ln["scale"])
+            w.sd[f"{key}.norms_{n}.{i}.beta"] = _t(ln["bias"])
+
+
+def _stochastic_predictor(w: _Writer, key, p):
+    """Inverts ``compat/torch_stochastic.py::convert_stochastic_predictor``."""
+    for name in ("pre", "proj", "post_pre", "post_proj", "cond"):
+        if name in p:
+            w.conv(f"{key}.{name}", p[name])
+    _dds_conv(w, f"{key}.convs", p["convs"])
+    _dds_conv(w, f"{key}.post_convs", p["post_convs"])
+    for flows, affine, prefix in (("flows", "affine", "flow_"),
+                                  ("post_flows", "post_affine", "post_flow_")):
+        for name in ("m", "logs"):
+            w.sd[f"{key}.{flows}.0.{name}"] = _t(p[affine][name]).reshape(-1, 1)
+        for i in range(_count(p, prefix)):
+            fp, fk = p[f"{prefix}{i}"], f"{key}.{flows}.{2 * i + 1}"
+            w.conv(f"{fk}.pre", fp["pre"])
+            _dds_conv(w, f"{fk}.convs", fp["convs"])
+            w.conv(f"{fk}.proj", fp["proj"])
+
+
+def stochastic_toucan_tts_from_jax(variables, share_wn_layers: int = 4) -> dict:
+    """JAX StochasticToucanTTS variables -> the port's state dict.
+
+    Inverts ``toucan_tpu/compat/torch_stochastic.py::
+    convert_stochastic_toucan_tts`` (``:35,57``): the conformers, PostNet
+    and glow as ``toucan_tts_from_jax`` writes them, the three flows at
+    ``{duration,pitch,energy}_flow``.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    w = _Writer()
+    _conformer(w, "encoder", params["encoder"], stats["encoder"])
+    _conformer(w, "decoder", params["decoder"], stats["decoder"])
+    for name in ("duration_flow", "pitch_flow", "energy_flow"):
+        _stochastic_predictor(w, name, params[name])
+    w.conv("pitch_embed.0", params["pitch_embed"])
+    w.conv("energy_embed.0", params["energy_embed"])
+    w.linear("feat_out", params["feat_out"])
+    _postnet_and_glow(w, params, variables.get("buffers", {}), share_wn_layers)
     return w.sd
+
+
+def _conv2d(w: _Writer, key, p):
+    """flax (kh, kw, in, out) -> torch Conv2d (out, in, kh, kw)."""
+    w.sd[f"{key}.weight"] = _t(np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1)))
+    w.sd[f"{key}.bias"] = _t(p["bias"])
+
+
+def spectrogram_discriminator_from_jax(variables) -> dict:
+    """JAX SpectrogramDiscriminator variables -> the port's state dict.
+
+    The JAX package has no converter for the critic; the port keeps the
+    reference's module layout (``D.filters.{i}``, ``D.out``, ``D.fc``) with
+    weight norm folded.  The JAX net reads windows as (B, T, F, 1) and the
+    port as (B, 1, T, F): the same (T, F) kernels, and the same flatten
+    order into ``fc``.
+    """
+    p = variables["params"]["D"]
+    w = _Writer()
+    for i in range(_count(p, "conv_")):
+        _conv2d(w, f"D.filters.{i}", p[f"conv_{i}"])
+    _conv2d(w, "D.out", p["out"])
+    w.linear("D.fc", p["fc"])
+    return w.sd
+
+
+def embedding_vae_from_jax(variables) -> dict:
+    """JAX EmbeddingVAE variables -> the port's state dict: ``enc_{i}``,
+    ``mean_{i}``, ``var_{i}`` and ``dec_{i}`` go to ``encoder.{i}``,
+    ``mean.{i}``, ``log_var.{i}`` and ``decoder.{i}`` (the JAX package has
+    no converter and loads no reference checkpoint of it)."""
+    p = variables["params"]
+    w = _Writer()
+    for ours, theirs in (("encoder", "enc_"), ("mean", "mean_"), ("log_var", "var_"),
+                         ("decoder", "dec_")):
+        for i in range(_count(p, theirs)):
+            w.linear(f"{ours}.{i}", p[f"{theirs}{i}"])
+    return w.sd
+
+
+def train_state_from_jax(state, params, batch_stats, buffers, mu, nu, count: int, step: int):
+    """Carry a JAX ``TrainState`` (``toucan_tpu/train/toucan_train.py``)
+    into the port's ``train.toucan_train.TrainState`` ``state``, in place.
+
+    ``params``, ``mu`` and ``nu`` are the JAX trees ``{"tts": ...,
+    "disc": ...}`` (the state's params and its Adam moments), ``batch_stats``
+    and ``buffers`` the model's, all as numpy; ``count`` Adam's update
+    count, ``step`` the state's step.  The moments go through the same
+    layout changes as the parameters they belong to.
+    """
+    def tts_sd(tree):
+        return toucan_tts_from_jax({"params": tree["tts"], "batch_stats": batch_stats,
+                                    "buffers": buffers})
+
+    def disc_sd(tree):
+        return spectrogram_discriminator_from_jax({"params": tree["disc"]})
+
+    state.model.load_state_dict(tts_sd(params))
+    modules = [(state.model, tts_sd)]
+    if state.disc is not None:
+        state.disc.load_state_dict(disc_sd(params))
+        modules.append((state.disc, disc_sd))
+    state.optimizer.state.clear()
+    for module, convert in modules:
+        m, v = convert(mu), convert(nu)
+        for name, p in module.named_parameters():
+            state.optimizer.state[p] = {
+                "step": torch.tensor(float(count)),
+                "exp_avg": m[name].to(p.device).reshape(p.shape),
+                "exp_avg_sq": v[name].to(p.device).reshape(p.shape)}
+    state.scheduler.jump_to(count)
+    state.step = int(step)
+    return state
 
 
 def hifigan_from_jax(variables) -> dict:
