@@ -159,7 +159,35 @@ Phases, each reported on its own lines:
    ``best.pt`` served through ``load.interface_from_torch`` (K1 12 + K2 4
    a synthesis); and the first step at full width with dropout 0 on two
    utterances, card against CPU: the f32 losses and BatchNorm statistics,
-   and the gradients in float64.
+   and the gradients in float64;
+15. the rest of training (after train), each phase at full width under
+   the "float32" policy, none of whose train steps may launch a kernel,
+   each with its step times, peak memory and a card-against-CPU check
+   (f32 losses within TOL_TRAIN_LOSS, gradients in float64 within
+   TOL_TRAIN_GRAD64 of each tensor's peak, the f32 ones printed):
+   - vocoder_train: ``avocodo_pipeline`` (``HiFiGANGenerator()``, the
+     joint critic at full width) on a seeded synthetic LJSpeech corpus
+     written to a temporary ``TOUCAN_CORPORA_ROOT``, batch 18, 12 steps
+     (0-2 warm-up, the critic updating at 3, 6, 9), the profiler's top
+     items of one adversarial step with the critic update; its
+     ``checkpoint_0.pt`` (``load.load_vocoder``) and the returned
+     generator served through K2 (4 launches each) against their
+     differentiable path (TOL_WAVE); one adversarial step of batch 1 on 16
+     frames card against CPU, with the spectral sigmas (TOL_SIGMA);
+   - bigvgan_train: full-width ``BigVGAN()`` with the same critic, 3
+     adversarial steps of batch 8, then served through K5 (73 launches)
+     against its differentiable path (TOL_REF);
+   - aligner_train: ``_aligner_train_fn`` with ``Aligner()`` and
+     ``TinyTTS()`` on seeded datapoints (200-800 frames, 20-80 tokens),
+     batch 8, 8 steps; ``mas_torch`` on the card equal to ``mas_numpy``;
+     the first step (BatchNorm statistics within TOL_TRAIN_STATS);
+   - embedding_train: ``fastspeech2_config()`` ToucanTTS and the GST, 4
+     co-training steps at batch 16, the token-spread step, a fine-tune
+     step on 8 triplets that must leave the GST's statistics as they were;
+     the first co-training step;
+   - wgan_qc: ``ResNetG()`` and ``ResNetD()``, batch 32, 5 steps with the
+     host LP timed apart; one step with ``z``, the potentials and the
+     ordered reals given to both sides.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -188,6 +216,8 @@ from toucan_tpu_torch.frontend import audio
 from toucan_tpu_torch.data import batching
 from toucan_tpu_torch.data.extraction import compute_frame_energy
 from toucan_tpu_torch.data.prefetch import to_tensors
+from toucan_tpu_torch.data.vocoder_data import SEGMENT_24K, VocoderDataset
+from toucan_tpu_torch.frontend.inventory import phone_feature_matrix, vectors_to_ctc_ids
 from toucan_tpu_torch.frontend.text import TextFrontend
 from toucan_tpu_torch.infer.cloner import UtteranceCloner
 from toucan_tpu_torch.infer.controllable import ControllableInterface
@@ -208,19 +238,33 @@ from toucan_tpu_torch.kernels.resstack import (hifigan_stage, hifigan_stage_plai
                                                kernel_channels, pack_stage, tiling_for)
 from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_stage,
                                             quantized_stage, quantized_stage_plain)
-from toucan_tpu_torch.load import GLOW_WEIGHT_NORM, interface_from_torch, split_weight_norm
-from toucan_tpu_torch.models.aligner import Aligner, alignment_from_logits, path_score
-from toucan_tpu_torch.models.embedding_gan import GanWrapper, ResNetG
+from toucan_tpu_torch.load import (GLOW_WEIGHT_NORM, interface_from_torch, load_vocoder,
+                                   split_weight_norm)
+from toucan_tpu_torch.models import embedding_gan as embedding_gan_module
+from toucan_tpu_torch.models.aligner import (Aligner, alignment_from_logits, mas_numpy, mas_torch,
+                                             path_score)
+from toucan_tpu_torch.models.embedding_gan import (GanWrapper, ResNetG, create_wgan_qc_state,
+                                                   make_wgan_qc_train_step, solve_ot_lp)
 from toucan_tpu_torch.models.embedding_vae import EmbeddingVAE
 from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.stochastic_toucan_tts import StochasticToucanTTS
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig, fastspeech2_config
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
+from toucan_tpu_torch.models.vocoders.discriminators import AvocodoJointDiscriminator
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 from toucan_tpu_torch.nn import positional
+from toucan_tpu_torch.recipes.pipelines import _aligner_train_fn, aligner_batch, avocodo_pipeline
+from toucan_tpu_torch.train.aligner_train import (TinyTTS, create_aligner_train_state,
+                                                  make_aligner_train_step)
+from toucan_tpu_torch.train.embedding_train import (create_embedding_train_state,
+                                                    make_embedding_train_step,
+                                                    make_finetune_step,
+                                                    make_spread_regularization_step)
 from toucan_tpu_torch.train.loop import train_loop
 from toucan_tpu_torch.train.toucan_train import (ZERO_GRADIENTS, compute_gradients,
                                                  create_train_state, make_train_step)
+from toucan_tpu_torch.train.vocoder_train import (create_vocoder_train_state,
+                                                  make_vocoder_train_step, spectral_sigmas)
 from toucan_tpu_torch.utils.device import matmul_precision
 
 SEED = 0
@@ -2141,6 +2185,9 @@ TOL_TRAIN_STATS = 1e-5      # BatchNorm running statistics, f32
 # gradients that are 0 in exact arithmetic (``ZERO_GRADIENTS``): noise on
 # both sides, held below this share of the largest gradient
 TOL_ZERO_GRAD = 1e-6
+# the rest of training's first steps: float64 gradients, card against
+# CPU, of each tensor's peak
+TOL_TRAIN_GRAD64 = 1e-6
 TOL_VAE = 1e-5
 STOCHASTIC_FRAMES = 1024
 
@@ -2184,14 +2231,15 @@ def first_step(cfg, gst_sd, batch, starts, device, dtype):
              if k.endswith(("running_mean", "running_var"))})
 
 
-def gradient_errors(card, cpu):
+def gradient_errors(card, cpu, zero_names):
     """(each tensor's max error as a share of its peak, sorted worst
-    first; the ``ZERO_GRADIENTS``' largest magnitude as a share of the
-    largest gradient)."""
+    first; the largest magnitude of the gradients named by the suffixes
+    ``zero_names``, 0 in exact arithmetic, as a share of the largest
+    gradient)."""
     peak = max(g.abs().max().item() for g in cpu.values())
     errs, zero = [], 0.0
     for k, want in cpu.items():
-        if k.endswith(ZERO_GRADIENTS):
+        if zero_names and k.endswith(tuple(zero_names)):
             zero = max(zero, max(card[k].abs().max().item(), want.abs().max().item()) / peak)
         else:
             errs.append(((card[k] - want).abs().max().item()
@@ -2209,31 +2257,51 @@ def check_train_step_against_cpu(dev, gst_sd, data, config):
     ~1e-3 of its peak at this width: the f32 errors are printed)."""
     cfg = dataclasses.replace(config, dropout=0.0, duration_dropout=0.0, pitch_dropout=0.0,
                               energy_dropout=0.0)
-    shortest = sorted(data, key=lambda d: len(d["mel"]))[:2]
-    batch = batching.pad_batch(shortest)
-    starts = torch.tensor([5, 17])
-    sides = {(dt, name): first_step(cfg, gst_sd, batch, starts, device, dt)
-             for dt in (torch.float32, torch.float64)
+    batch = batching.pad_batch(sorted(data, key=lambda d: len(d["mel"]))[:2])
+    compare_step("train", f"first step at full width, dropout 0, 2 utterances "
+                          f"({int(batch['speech_lengths'].sum())} frames)",
+                 functools.partial(first_step, cfg, gst_sd, batch, torch.tensor([5, 17])), dev,
+                 TOL_TRAIN_LOSS, tol_grad=TOL_TRAIN_GRAD, extra=stats_within(TOL_TRAIN_STATS),
+                 zero=ZERO_GRADIENTS)
+
+
+def stats_within(tol):
+    def check(card_s, cpu_s):
+        err = max((card_s[k] - cpu_s[k]).abs().max().item() for k in cpu_s)
+        return f"BatchNorm statistics max abs err {err:.3e} (tolerance {tol}); ", err <= tol
+    return check
+
+
+def compare_step(phase, what, run, dev, tol_loss, tol_grad=TOL_TRAIN_GRAD64, extra=None,
+                 zero=()):
+    """``run(device, dtype)`` -> (metrics, gradients, other) on ``dev`` (the
+    card) and on the CPU, in f32 and float64: the f32 losses within ``tol_loss``
+    relative, the float64 gradients within ``tol_grad`` of each tensor's
+    peak (f32 ones printed), except those named by the suffixes ``zero``
+    (0 in exact arithmetic, noise on both sides: below TOL_ZERO_GRAD of the
+    largest gradient, as ``gradient_errors`` holds ``ZERO_GRADIENTS``);
+    ``extra(card32, cpu32)`` -> (message, ok)."""
+
+    sides = {(dt, name): run(device, dt) for dt in (torch.float32, torch.float64)
              for name, device in (("card", dev), ("cpu", torch.device("cpu")))}
-    (m_card, g32_card, s_card), (m_cpu, g32_cpu, s_cpu) = (sides[torch.float32, "card"],
-                                                          sides[torch.float32, "cpu"])
+    (m_card, g_card, o_card), (m_cpu, g_cpu, o_cpu) = (sides[torch.float32, "card"],
+                                                      sides[torch.float32, "cpu"])
     loss_err = max(abs(m_card[k] - m_cpu[k]) / max(abs(m_cpu[k]), 1e-30) for k in m_cpu)
-    stats_err = max((s_card[k] - s_cpu[k]).abs().max().item() for k in s_cpu)
-    errs32, _ = gradient_errors(g32_card, g32_cpu)
+    errs32, _ = gradient_errors(g_card, g_cpu, zero)
     errs64, zero64 = gradient_errors(sides[torch.float64, "card"][1],
-                                     sides[torch.float64, "cpu"][1])
-    log("train", f"first step at full width, dropout 0, 2 utterances "
-                 f"({int(batch['speech_lengths'].sum())} frames), card against CPU: f32 losses "
-                 f"max rel err {loss_err:.3e} (tolerance {TOL_TRAIN_LOSS}), BatchNorm statistics "
-                 f"max abs err {stats_err:.3e} (tolerance {TOL_TRAIN_STATS}); float64 gradients "
-                 f"max err {errs64[0][0]:.3e} of their tensor's peak (at {errs64[0][1]}; "
-                 f"tolerance {TOL_TRAIN_GRAD}), the zero gradients within {zero64:.3e} of the "
-                 f"largest (tolerance {TOL_ZERO_GRAD}); f32 gradients, not held: "
-                 + ", ".join(f"{k} {e:.2e}" for e, k in errs32[:3]) + "; "
-                 + ", ".join(f"{k}={v:.5f}" for k, v in m_cpu.items()))
-    if not (loss_err <= TOL_TRAIN_LOSS and stats_err <= TOL_TRAIN_STATS
-            and errs64[0][0] <= TOL_TRAIN_GRAD and zero64 <= TOL_ZERO_GRAD):
-        raise AssertionError("the first train step on the card disagrees with the CPU")
+                                     sides[torch.float64, "cpu"][1], zero)
+    msg, ok = extra(o_card, o_cpu) if extra else ("", True)
+    if zero:
+        msg += (f"the gradients 0 in exact arithmetic ({', '.join(zero)}) within "
+                f"{zero64:.3e} of the largest (tolerance {TOL_ZERO_GRAD}); ")
+    log(phase, f"{what}, card against CPU: f32 losses max rel err {loss_err:.3e} (tolerance "
+               f"{tol_loss}); float64 gradients max err {errs64[0][0]:.3e} of their tensor's "
+               f"peak (at {errs64[0][1]}; tolerance {tol_grad}); {msg}f32 gradients, not held: "
+               + ", ".join(f"{k} {e:.2e}" for e, k in errs32[:3]) + "; "
+               + ", ".join(f"{k}={v:.5f}" for k, v in m_cpu.items()))
+    if not (loss_err <= tol_loss and errs64[0][0] <= tol_grad and zero64 <= TOL_ZERO_GRAD
+            and ok):
+        raise AssertionError(f"{phase}: {what} on the card disagrees with the CPU")
 
 
 def phase_train(dev, voc_sd, gst_sd, launches, card, config=None):
@@ -2410,6 +2478,501 @@ def phase_stochastic(dev, launches, card, config=None):
         raise AssertionError("the EmbeddingVAE on the card disagrees with the CPU")
 
 
+# ------------------------------------------------------ training slice 2
+
+VOC_STEPS = 12            # avocodo_pipeline's steps: 0-2 warm-up, 3-11 adversarial
+VOC_BATCH = 18            # the reference's batch
+VOC_WARMUP = -98          # generator_warmup: steps s <= warmup + 100 are warm-up
+VOC_CHECK_FRAMES = 16     # card against CPU: one adversarial step on 6144 samples
+SERVE_FRAMES = 64
+BIGVGAN_BATCH = 8
+BIGVGAN_STEPS = 3
+TOL_SIGMA = 1e-6          # spectral sigmas, relative
+ALIGNER_STEPS = 8
+ALIGNER_BATCH = 8
+ALIGNER_FRAMES = (200, 800)
+ALIGNER_TOKENS = (20, 80)
+EMB_BATCH = 16
+EMB_STEPS = 4
+TRIPLETS = 8
+# gradients 0 in exact arithmetic besides the TTS's ``ZERO_GRADIENTS``: the
+# GST's key bias shifts every score of a query alike, which its softmax
+# ignores; the WGAN generator's ``fc`` bias (below) is taken out by the
+# train-mode BatchNorm after it
+EMBEDDING_ZERO_GRADIENTS = ZERO_GRADIENTS + ("stl.mha.linear_k.bias",)
+WGAN_BATCH = 32
+WGAN_STEPS = 5
+
+
+def joint_discriminator(segment, seed):
+    return AvocodoJointDiscriminator(segment=segment,
+                                     generator=torch.Generator().manual_seed(seed))
+
+
+def write_ljspeech(root, n=12, seed=SEED, sr=22050):
+    """A seeded LJSpeech layout (``metadata.csv`` and ``wavs/``) of harmonic
+    tones with noise, 2-4 s at 22 050 Hz: made here, nothing is downloaded."""
+    base = os.path.join(root, "LJSpeech", "LJSpeech-1.1")
+    os.makedirs(os.path.join(base, "wavs"))
+    rng = np.random.RandomState(seed)
+    lines = []
+    for i in range(n):
+        t = np.arange(int(sr * rng.uniform(2.0, 4.0))) / sr
+        f0 = rng.uniform(90, 250) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.5, 3) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        wave = sum(np.sin(k * phase) / k for k in range(1, 8))
+        wave = 0.3 * wave / np.abs(wave).max() + 0.01 * rng.randn(len(t))
+        write_wav(os.path.join(base, "wavs", f"LJ{i:03d}.wav"), wave.astype(np.float32), sr)
+        lines.append(f"LJ{i:03d}|utterance {i}|utterance {i}")
+    with open(os.path.join(base, "metadata.csv"), "w") as f:
+        f.write("\n".join(lines))
+
+
+def reset_counts():
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def check_no_launches(what):
+    got = {k: w.launches for k, w in WRAPPERS.items()}
+    if any(got.values()):
+        raise AssertionError(f"{what} launched kernels: {got}")
+
+
+def marker(marks):
+    def mark(step, metrics):  # the metrics' read waits for the step
+        values = {k: v.item() for k, v in metrics.items()}
+        marks.append((step, time.perf_counter(), values))
+        if not all(np.isfinite(v) for v in values.values()):
+            raise AssertionError(f"step {step}: a loss is not finite: {values}")
+    return mark
+
+
+def step_times(marks, kinds):
+    """{kind: [host seconds of each step of that kind]}: a step's time runs
+    from the previous step's metrics read to its own; the first step of
+    each kind (the build of its cuDNN plans) is left out."""
+    out, seen = {}, set()
+    for (_, t_prev, _), (s, t, _) in zip([(None, None, None)] + marks[:-1], marks):
+        if kinds(s) in seen:
+            out.setdefault(kinds(s), []).append(t - t_prev)
+        seen.add(kinds(s))
+    return out
+
+
+def fmt_ms(ts):
+    return (f"median {1e3 * float(np.median(ts)):.2f} ms of {len(ts)} ("
+            + ", ".join(f"{1e3 * t:.2f}" for t in ts) + ")")
+
+
+def peak_memory(what, card):
+    gb = torch.cuda.max_memory_allocated() / 2 ** 30 if torch.cuda.is_available() else None
+    return (f"{what}: peak device memory "
+            f"{'not measured' if gb is None else f'{gb:.3f} GiB'} "
+            f"(torch.cuda.max_memory_allocated; {card})")
+
+
+def reset_peak():
+    if torch.cuda.is_available():
+        torch.cuda.reset_peak_memory_stats()
+
+
+def serve_against_train_path(label, generator, mel, kernel, per_call, launches, tol):
+    """The no-grad path (through ``kernel``, ``per_call`` launches, counted
+    into ``launches``) against the differentiable path on the same mel."""
+    generator.eval()
+    reset_counts()
+    with torch.no_grad():
+        served, sec = timed(lambda: generator(mel))
+    got = {k: w.launches for k, w in WRAPPERS.items()}
+    expect = per_synthesis(1, **{kernel: per_call})
+    want = {k: expect.get(k, 0) for k in WRAPPERS}
+    if got != want:
+        raise AssertionError(f"{label}: expected launches {want}, got {got}")
+    for k, c in got.items():
+        launches[k] += c
+    reset_counts()
+    with torch.no_grad(), matmul_precision("float32"):
+        train_path = generator(mel, differentiable=True)
+    check_no_launches(f"{label}: the differentiable path")
+    err = (served - train_path).abs().max().item()
+    log("serve", f"{label}: {mel.shape[1]} frames through {kernel} ({per_call} launches, "
+                 f"{1e3 * sec:.2f} ms) against the differentiable path: max_abs_err={err:.3e} "
+                 f"(tolerance {tol})")
+    if not (np.isfinite(err) and err <= tol):
+        raise AssertionError(f"{label}: the served wave disagrees with the training path")
+
+
+def first_vocoder_step(device, dtype, frames=VOC_CHECK_FRAMES):
+    """(metrics, gradients of both nets, spectral sigmas) of one adversarial
+    step with the critic update of a fresh seeded state, batch 1."""
+    torch.manual_seed(SEED + 31)
+    gen = HiFiGANGenerator()
+    disc = joint_discriminator(frames * 384, SEED + 32)
+    state = create_vocoder_train_state(gen, disc, device=device)
+    for m in (state.generator, state.discriminator):
+        m.to(dtype)
+    rng = np.random.RandomState(SEED + 33)
+    batch = {"gold_wave": torch.from_numpy(0.1 * rng.randn(1, frames * 384, 1)),
+             "mel": torch.from_numpy(rng.randn(1, frames, 80) - 4.0)}
+    batch = {k: v.to(device, dtype) for k, v in batch.items()}
+    with matmul_precision("float32"):
+        metrics = make_vocoder_train_step(use_adversarial=True)(state, batch, True)
+        sigmas = {k: v.item() for k, v in spectral_sigmas(state.discriminator).items()}
+    grads = {f"{net}.{k}": p.grad.cpu().double()
+             for net, m in (("g", state.generator), ("d", state.discriminator))
+             for k, p in m.named_parameters()}
+    return {k: v.item() for k, v in metrics.items()}, grads, sigmas
+
+
+def phase_vocoder_train(dev, launches, card):
+    """``avocodo_pipeline`` at full width (``HiFiGANGenerator()``, the joint
+    critic at ``channel_scale=1.0``) on a seeded synthetic LJSpeech corpus
+    (12 files, 2-4 s at 22 050 Hz, resampled to 24 and 16 kHz by the
+    dataset), batch 18, VOC_STEPS steps: 0-2 warm-up, then adversarial, the
+    critic updating at steps 3, 6 and 9; no step may launch a kernel.  The
+    loop's step times by kind (host clock), segments/s and seconds of
+    audio trained per second, the peak device memory, the profiler's top
+    device items of one adversarial step with the critic update; then
+    ``checkpoint_0.pt`` (through ``load.load_vocoder``) and the returned
+    generator each served through K2 (4 launches) against their
+    differentiable path (TOL_WAVE); then one adversarial step card against
+    CPU (batch 1, 16 frames): losses, float64 gradients of both nets, the
+    spectral sigmas."""
+    t_phase = time.perf_counter()
+    marks = []
+    reset_counts()
+    reset_peak()
+    with tempfile.TemporaryDirectory() as tmp:
+        write_ljspeech(os.path.join(tmp, "corpora"))
+        old = os.environ.get("TOUCAN_CORPORA_ROOT")
+        os.environ["TOUCAN_CORPORA_ROOT"] = os.path.join(tmp, "corpora")
+        try:
+            torch.manual_seed(SEED + 21)
+            t0 = time.perf_counter()
+            state = avocodo_pipeline(steps=VOC_STEPS, batch_size=VOC_BATCH,
+                                     generator_warmup=VOC_WARMUP, model_dir=os.path.join(
+                                         tmp, "run"), device=dev, seed=SEED,
+                                     discriminator=joint_discriminator(SEGMENT_24K, SEED + 22),
+                                     callbacks=[marker(marks)])
+            run_s = time.perf_counter() - t0
+        finally:
+            if old is None:
+                os.environ.pop("TOUCAN_CORPORA_ROOT")
+            else:
+                os.environ["TOUCAN_CORPORA_ROOT"] = old
+        check_no_launches("the vocoder train steps")
+        if [m[0] for m in marks] != list(range(VOC_STEPS)) or state.step != VOC_STEPS:
+            raise AssertionError(f"avocodo_pipeline ran steps {[m[0] for m in marks]}")
+        warm_end = VOC_WARMUP + 100
+        kinds = step_times(marks, lambda s: "warm-up" if s <= warm_end else
+                           "adversarial with the critic update" if s % 3 == 0 else
+                           "adversarial without the critic update")
+        sec_audio = VOC_BATCH * SEGMENT_24K / 24000
+        log("vocoder_train", f"avocodo_pipeline: {VOC_STEPS} steps of {VOC_BATCH} segments of "
+                             f"{SEGMENT_24K} samples in {run_s:.2f} s with the first checkpoint "
+                             f"({card})")
+        for kind, ts in kinds.items():
+            med = float(np.median(ts))
+            log("vocoder_train", f"{kind} step: {fmt_ms(ts)}; {VOC_BATCH / med:.2f} segments/s, "
+                                 f"{sec_audio / med:.3f} s of audio trained per s ({card})")
+        log("vocoder_train", "losses at the last step: "
+                             + ", ".join(f"{k}={v:.4f}" for k, v in marks[-1][2].items()))
+        log("vocoder_train", peak_memory("the pipeline's steps", card))
+        dataset_batch = VocoderDataset([os.path.join(tmp, "corpora", "LJSpeech", "LJSpeech-1.1",
+                                                     "wavs", f"LJ{i:03d}.wav") for i in range(12)],
+                                       seed=SEED).sample_batch(VOC_BATCH)
+        batch = to_tensors(dataset_batch, dev)
+        step = make_vocoder_train_step(use_adversarial=True)
+        with matmul_precision("float32"), torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU,
+                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+            _, sec = timed(lambda: step(state, batch, True))
+        report_profile(prof, sec * 1e6, "vocoder_train",
+                       "one adversarial step with the critic update")
+        check_no_launches("the profiled vocoder step")
+        names = sorted(os.listdir(os.path.join(tmp, "run")))
+        if names != ["checkpoint_0.pt"]:
+            raise AssertionError(f"the pipeline wrote {names}")
+        served = HiFiGANGenerator()
+        served.load_state_dict(load_vocoder(os.path.join(tmp, "run", "checkpoint_0.pt")))
+    mel = torch.from_numpy(np.random.RandomState(SEED + 23).randn(1, SERVE_FRAMES, 80)
+                           .astype(np.float32) - 4.0).to(dev)
+    serve_against_train_path("checkpoint_0.pt", served.to(dev), mel, "k2", 4, launches, TOL_WAVE)
+    serve_against_train_path("the returned generator", state.generator, mel, "k2", 4, launches,
+                             TOL_WAVE)
+    del state, served, batch
+
+    def sigmas(card_s, cpu_s):
+        err = max(abs(card_s[k] / cpu_s[k] - 1) for k in cpu_s)
+        return f"spectral sigmas max rel err {err:.3e} (tolerance {TOL_SIGMA}); ", err <= TOL_SIGMA
+
+    compare_step("vocoder_train", f"one adversarial step with the critic update, batch 1, "
+                 f"{VOC_CHECK_FRAMES} frames", first_vocoder_step, dev, TOL_TRAIN_LOSS,
+                 extra=sigmas)
+    log("vocoder_train", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def phase_bigvgan_train(dev, launches, card):
+    """Full-width ``BigVGAN()`` (seeded; SnakeBeta parameters 0.3 x N(0, 1))
+    with the joint critic: BIGVGAN_STEPS adversarial steps of
+    ``make_vocoder_train_step`` on batches of BIGVGAN_BATCH 12288-sample
+    segments, the critic updating at the first; step times and peak
+    memory; no step may launch a kernel; then the trained generator served
+    through K5 (73 launches) against its differentiable path (TOL_REF)."""
+    t_phase = time.perf_counter()
+    torch.manual_seed(SEED + 41)
+    gen = BigVGAN()
+    with torch.no_grad():
+        for name, p in gen.named_parameters():
+            if name.endswith(("alpha", "beta")):
+                p.copy_(0.3 * torch.randn_like(p))
+    state = create_vocoder_train_state(gen, joint_discriminator(SEGMENT_24K, SEED + 42),
+                                       device=dev)
+    rng = np.random.RandomState(SEED + 43)
+    reset_counts()
+    reset_peak()
+    step = make_vocoder_train_step(use_adversarial=True)
+    ts = []
+    for s in range(BIGVGAN_STEPS):
+        batch = {"gold_wave": torch.from_numpy(
+                     (0.1 * rng.randn(BIGVGAN_BATCH, SEGMENT_24K, 1)).astype(np.float32)).to(dev),
+                 "mel": torch.from_numpy((rng.randn(BIGVGAN_BATCH, SEGMENT_24K // 384, 80)
+                                          - 4.0).astype(np.float32)).to(dev)}
+        with matmul_precision("float32"):
+            metrics, sec = timed(lambda: step(state, batch, s % 3 == 0))
+        ts.append(sec)
+        if not all(np.isfinite(v.item()) for v in metrics.values()):
+            raise AssertionError(f"bigvgan step {s}: a loss is not finite")
+    check_no_launches("the BigVGAN train steps")
+    log("bigvgan_train", f"adversarial steps (the first with the critic update and the cuDNN "
+                         f"plans' build), batch {BIGVGAN_BATCH}: "
+                         + ", ".join(f"{1e3 * t:.2f} ms" for t in ts)
+                         + f"; {BIGVGAN_BATCH / ts[-1]:.2f} segments/s at the last ({card})")
+    log("bigvgan_train", peak_memory("the BigVGAN steps", card))
+    mel = torch.from_numpy(np.random.RandomState(SEED + 44).randn(1, SERVE_FRAMES, 80)
+                           .astype(np.float32) - 4.0).to(dev)
+    serve_against_train_path("trained BigVGAN", state.generator, mel, "k5", K5_LAUNCHES,
+                             launches, TOL_REF)
+    log("bigvgan_train", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def aligner_data(seed, n=24):
+    """Seeded aligner datapoints: ALIGNER_TOKENS phones drawn from the
+    inventory and mels of ALIGNER_FRAMES frames, at least 3 frames a phone (feasible for CTC),
+    a speaker embedding each."""
+    rng = np.random.RandomState(seed)
+    phones = phone_feature_matrix()
+    data = []
+    for _ in range(n):
+        tokens = rng.randint(ALIGNER_TOKENS[0], ALIGNER_TOKENS[1] + 1)
+        frames = rng.randint(max(ALIGNER_FRAMES[0], 3 * tokens), ALIGNER_FRAMES[1] + 1)
+        data.append(dict(text=phones[rng.randint(0, len(phones), tokens)].astype(np.float32),
+                         mel=(rng.randn(frames, 80) - 4.0).astype(np.float32),
+                         speaker_embedding=rng.randn(192).astype(np.float32)))
+    return data
+
+
+def first_aligner_step(device, dtype, data):
+    """(metrics, gradients of both nets, BatchNorm statistics) of one step
+    of a fresh seeded state at step 1000 (the reconstruction at 0.5),
+    without dropout, on the first two datapoints."""
+    torch.manual_seed(SEED + 51)
+    state = create_aligner_train_state(device=device, asr=Aligner(), tts=TinyTTS())
+    for m in (state.asr, state.tts):
+        m.to(dtype)
+    state.step = 1000
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in to_tensors(aligner_batch(data[:2]), device).items()}
+    with matmul_precision("float32"):
+        metrics = make_aligner_train_step()(state, batch, deterministic=True)
+    grads = {f"{net}.{k}": p.grad.cpu().double()
+             for net, m in (("asr", state.asr), ("tts", state.tts))
+             for k, p in m.named_parameters()}
+    stats = {k: b.cpu().double() for k, b in state.asr.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    return {k: v.item() for k, v in metrics.items()}, grads, stats
+
+
+def phase_aligner_train(dev, card):
+    """``_aligner_train_fn`` with full-size ``Aligner()`` and ``TinyTTS()``
+    on seeded datapoints (mels of 200-800 frames, 20-80 feasible tokens),
+    batch 8, 8 steps (past RAdam's rectification at step 6); no step may
+    launch a kernel; step times and mel frames/s; the first step card
+    against CPU (losses, BatchNorm statistics, float64 gradients); and
+    ``mas_torch`` on the card equal to ``mas_numpy`` on the trained
+    aligner's scores of an 800-frame mel."""
+    t_phase = time.perf_counter()
+    data = aligner_data(SEED + 52)
+    marks = []
+    reset_counts()
+    reset_peak()
+    state = _aligner_train_fn(data, ALIGNER_STEPS, batch_size=ALIGNER_BATCH, device=dev,
+                              seed=SEED, callbacks=[marker(marks)])
+    check_no_launches("the aligner train steps")
+    ts = step_times(marks, lambda s: "step")["step"]
+    frames = ALIGNER_BATCH * np.mean([len(d["mel"]) for d in data])
+    log("aligner_train", f"{ALIGNER_STEPS} steps of batch {ALIGNER_BATCH}: {fmt_ms(ts)}; "
+                         f"~{frames / np.median(ts):.0f} mel frames/s (the corpus mean length; "
+                         f"{card})")
+    log("aligner_train", "losses at the last step: "
+                         + ", ".join(f"{k}={v:.4f}" for k, v in marks[-1][2].items()))
+    log("aligner_train", peak_memory("the aligner steps", card))
+    longest = max(data, key=lambda d: len(d["mel"]))
+    tokens = vectors_to_ctc_ids(longest["text"])
+    with torch.no_grad():
+        logits = state.asr(torch.from_numpy(longest["mel"][None]).to(dev))[0]
+    scores = logits.softmax(-1)[:, tokens]
+    (path, sec) = timed(lambda: mas_torch(scores))
+    want = mas_numpy(scores.cpu().numpy())
+    equal = bool((path.cpu().numpy() == want).all())
+    log("aligner_train", f"mas_torch on the card ({scores.shape[0]} frames x {len(tokens)} "
+                         f"tokens, {1e3 * sec:.2f} ms) equal to mas_numpy: {equal}")
+    if not equal:
+        raise AssertionError("mas_torch on the card differs from mas_numpy")
+    compare_step("aligner_train", "the first step (step 1000, dropout 0, 2 utterances)",
+                 functools.partial(first_aligner_step, data=data), dev, TOL_TRAIN_LOSS,
+                 extra=stats_within(TOL_TRAIN_STATS))
+    log("aligner_train", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def embedding_state(device, dtype=torch.float32, dropout=True):
+    config = fastspeech2_config() if dropout else dataclasses.replace(
+        fastspeech2_config(), dropout=0.0, duration_dropout=0.0, pitch_dropout=0.0,
+        energy_dropout=0.0)
+    state = create_embedding_train_state(config, device=device, seed=SEED + 61)
+    if not dropout:
+        state.model.conv_postnet.dropout_rate = 0.0   # no config field reaches it
+    for m in (state.model, state.gst):
+        m.to(dtype)
+    return state
+
+
+def first_embedding_step(device, dtype, data):
+    state = embedding_state(device, dtype, dropout=False)
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in to_tensors(batching.pad_batch(data), device).items()}
+    with matmul_precision("float32"):
+        metrics = make_embedding_train_step()(state, batch)
+    grads = {f"{net}.{k}": p.grad.cpu().double()
+             for net, m in (("tts", state.model), ("gst", state.gst))
+             for k, p in m.named_parameters()}
+    stats = {k: b.cpu().double() for m in (state.model, state.gst)
+             for k, b in m.named_buffers() if k.endswith(("running_mean", "running_var"))}
+    return {k: v.item() for k, v in metrics.items()}, grads, stats
+
+
+def phase_embedding_train(dev, card):
+    """``fastspeech2_config()`` ToucanTTS and ``StyleEmbedding()`` at full
+    width: EMB_STEPS co-training steps at batch 16 (the GST in training
+    mode), one token-spread step, one fine-tune step on 8 triplets (the
+    GST's running statistics must stay); step times; no step may launch a
+    kernel; the first co-training step (dropout 0, 2 utterances) card
+    against CPU."""
+    t_phase = time.perf_counter()
+    data = training_data(SEED + 62, n=EMB_BATCH)
+    reset_counts()
+    reset_peak()
+    state = embedding_state(dev)
+    batch = to_tensors(batching.pad_batch(data), dev)
+    step = make_embedding_train_step()
+    with matmul_precision("float32"):
+        ts = [timed(lambda: step(state, batch))[1] for _ in range(EMB_STEPS)]
+        reg_loss, reg_s = timed(lambda: make_spread_regularization_step()(state))
+        rng = np.random.RandomState(SEED + 63)
+        mels = [torch.from_numpy(d["mel"]) for d in data]
+        triplets = {}
+        for name in ("anchor", "positive", "negative"):
+            pick = rng.randint(0, len(mels), TRIPLETS)
+            lengths = torch.tensor([len(mels[i]) for i in pick])
+            padded = torch.zeros(TRIPLETS, int(lengths.max()), 80)
+            for j, i in enumerate(pick):
+                padded[j, :len(mels[i])] = mels[i]
+            triplets[name], triplets[f"{name}_lengths"] = padded.to(dev), lengths.to(dev)
+        stats = {k: v.clone() for k, v in state.gst.state_dict().items() if "running" in k}
+        opt = torch.optim.Adam(state.gst.parameters(), lr=1e-4)
+        ft, ft_s = timed(lambda: make_finetune_step()(state.gst, opt, triplets))
+    check_no_launches("the embedding train steps")
+    moved = [k for k, v in stats.items() if not torch.equal(state.gst.state_dict()[k], v)]
+    if moved:
+        raise AssertionError(f"the fine-tune step changed the GST's statistics {moved}")
+    log("embedding_train", f"co-training steps, batch {EMB_BATCH} "
+                           f"({int(batch['speech_lengths'].sum())} frames): {fmt_ms(ts[1:])} "
+                           f"after a first of {1e3 * ts[0]:.2f} ms; spread step "
+                           f"{1e3 * reg_s:.2f} ms (loss {reg_loss.item():.2f}); fine-tune step "
+                           f"on {TRIPLETS} triplets {1e3 * ft_s:.2f} ms (triplet "
+                           f"{ft['triplet'].item():.4f}, barlow {ft['barlow'].item():.4f}); "
+                           f"the GST's running statistics unchanged ({card})")
+    log("embedding_train", peak_memory("the embedding steps", card))
+    del state, batch
+    shortest = sorted(data, key=lambda d: len(d["mel"]))[:2]
+    compare_step("embedding_train", "the first co-training step (dropout 0, 2 utterances)",
+                 functools.partial(first_embedding_step, data=shortest), dev, TOL_TRAIN_LOSS,
+                 extra=stats_within(TOL_TRAIN_STATS), zero=EMBEDDING_ZERO_GRADIENTS)
+    log("embedding_train", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def wgan_step(device, dtype, real, z, ot):
+    """(losses, gradients, -) of one WGAN-QC step of a fresh seeded state
+    with ``z`` and the LP's solution ``ot`` given."""
+    state = create_wgan_qc_state(device=device, seed=SEED + 71)
+    for m in (state.generator, state.critic):
+        m.to(dtype)
+    with matmul_precision("float32"):
+        metrics = make_wgan_qc_train_step()(state, torch.from_numpy(real).to(device, dtype),
+                                            z=torch.from_numpy(z).to(device, dtype), ot=ot)
+    grads = {f"{net}.{k}": p.grad.cpu().double()
+             for net, m in (("g", state.generator), ("d", state.critic))
+             for k, p in m.named_parameters()}
+    return metrics, grads, None
+
+
+def phase_wgan_qc(dev, card):
+    """``ResNetG()`` and ``ResNetD()`` at full size, batch 32, WGAN_STEPS
+    WGAN-QC steps on seeded embeddings, the host LP (scipy HiGHS) timed
+    apart from the step; one step card against CPU with ``z``, the
+    potentials and the ordered reals given to both."""
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(SEED + 72)
+    reals = [rng.randn(WGAN_BATCH, 64).astype(np.float32) for _ in range(WGAN_STEPS)]
+    state = create_wgan_qc_state(device=dev, seed=SEED + 71)
+    step = make_wgan_qc_train_step()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    reset_counts()
+    ts, lp = [], []
+
+    def timed_lp(dist):  # the step's own LP, on the host clock
+        t0 = time.perf_counter()
+        out = solve_ot_lp(dist)
+        lp.append(time.perf_counter() - t0)
+        return out
+
+    embedding_gan_module.solve_ot_lp = timed_lp
+    try:
+        with matmul_precision("float32"):
+            for real in reals:
+                losses, sec = timed(lambda: step(state, real, generator=gen))
+                ts.append(sec)
+    finally:
+        embedding_gan_module.solve_ot_lp = solve_ot_lp
+    check_no_launches("the WGAN-QC steps")
+    log("wgan_qc", f"steps of batch {WGAN_BATCH}: {fmt_ms(ts)}; of which the host LP "
+                   f"(a {WGAN_BATCH} x {WGAN_BATCH} plan, HiGHS) {fmt_ms(lp)}; last losses "
+                   + ", ".join(f"{k}={v:.4f}" for k, v in losses.items()) + f" ({card})")
+    real = reals[0]
+    z = np.random.RandomState(SEED + 73).randn(WGAN_BATCH, 32).astype(np.float32)
+    with torch.no_grad():
+        probe = create_wgan_qc_state(device="cpu", seed=SEED + 71)
+        fake = probe.generator(torch.from_numpy(z), train=True).numpy()
+    dist = 0.5 / 64 * ((real[:, None] - fake[None]) ** 2).sum(-1)
+    potentials, plan = solve_ot_lp(dist)
+    ot = (potentials, real[np.argmax(plan, axis=0)])
+    compare_step("wgan_qc", "one step with z, potentials and ordered reals given",
+                 functools.partial(wgan_step, real=real, z=z, ot=ot), dev, TOL_TRAIN_LOSS,
+                 zero=("g.fc.bias",))
+    log("wgan_qc", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -2508,6 +3071,11 @@ def main():
     phase_fastspeech2(launches, smi)
     phase_stochastic(dev, launches, smi)
     phase_train(dev, voc_sd, gst_sd, launches, smi)
+    phase_vocoder_train(dev, launches, smi)
+    phase_bigvgan_train(dev, launches, smi)
+    phase_aligner_train(dev, smi)
+    phase_embedding_train(dev, smi)
+    phase_wgan_qc(dev, smi)
     log("main", f"launches over the main-path phases: {launches}")
 
     kernels = [

@@ -3,16 +3,23 @@
 
 Runs ``phase_clone``, ``phase_controllable``, ``phase_main_bf16`` (HiFiGAN
 and BigVGAN), ``phase_precision``, ``phase_fastspeech2``,
-``phase_stochastic`` and ``phase_train`` on tiny models (the tiny ToucanTTS
-of the port's tests, also as the stochastic model and the trainer's,
-64-channel vocoders, an aligner of conv 64 and BiLSTM 32, 2000 PCA
-samples, ``fastspeech2_config`` at one block a side) with the kernels'
-plain versions, on the CPU (the training data and batch keep their sizes), so that a wrong path,
+``phase_stochastic``, ``phase_train`` and the phases of the rest of
+training (``phase_vocoder_train``, ``phase_bigvgan_train``,
+``phase_aligner_train``, ``phase_embedding_train``, ``phase_wgan_qc``) on
+tiny models (the tiny ToucanTTS of the port's tests, also as the
+stochastic model and the trainer's, 64-channel vocoders, the joint critic
+at ``channel_scale=0.05``, an aligner of conv 64 and BiLSTM 32 with a
+``TinyTTS`` of 32, 2000 PCA samples, ``fastspeech2_config`` at one block a
+side) with the kernels' plain versions, on the CPU (the acoustic training
+data and batch keep their sizes; the vocoder, aligner and embedding
+batches and lengths are cut), so that a wrong path,
 argument or shape shows before the card is asked.  Launch counts are not
 checked (on the CPU every count stays 0), no graph is replayed, and every
 time it prints is the CPU's, not the card's.
 
-    python3 scripts/rehearse_chip_phases.py
+    python3 scripts/rehearse_chip_phases.py [PHASE ...]
+
+With names (``vocoder_train``, ``wgan_qc``, ...) only those phases run.
 """
 
 import os
@@ -31,8 +38,12 @@ from toucan_tpu_torch.models.embedding_gan import GanWrapper  # noqa: E402
 from toucan_tpu_torch.models.gst import StyleEmbedding  # noqa: E402
 from toucan_tpu_torch.models.toucan_tts import (ToucanTTS, ToucanTTSConfig,  # noqa: E402
                                                 fastspeech2_config)
+from toucan_tpu_torch.models.vocoders import hifigan as hifigan_module  # noqa: E402
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN  # noqa: E402
+from toucan_tpu_torch.models.vocoders.discriminators import \
+    AvocodoJointDiscriminator  # noqa: E402
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator  # noqa: E402
+from toucan_tpu_torch.train.aligner_train import TinyTTS  # noqa: E402
 
 TINY = ToucanTTSConfig(adim=32, aheads=2, enc_layers=1, enc_units=64, dec_layers=1, dec_units=64,
                        duration_layers=1, pitch_layers=1, energy_layers=1, duration_chans=16,
@@ -68,6 +79,17 @@ def main():
     # the phases synthesize from predicted durations, which the tiny model's
     # init puts at about 0 frames a phone: here about 3
     tts_sd = dict(tts_sd, **{"duration_predictor.linear.bias": torch.tensor([1.5])})
+    # the rest of training: tiny nets, short batches
+    cpu_dev = torch.device("cpu")
+    hifigan_module.HiFiGANGenerator = lambda: HiFiGANGenerator(channels=64)  # the pipeline's
+    chip_smoke.joint_discriminator = lambda segment, seed: AvocodoJointDiscriminator(
+        channel_scale=0.05, segment=segment, generator=torch.Generator().manual_seed(seed))
+    chip_smoke.BigVGAN = lambda: BigVGAN(channels=64)
+    chip_smoke.TinyTTS = lambda: TinyTTS(lstm_dim=32)
+    for name, value in (("VOC_BATCH", 3), ("BIGVGAN_BATCH", 2), ("BIGVGAN_STEPS", 2),
+                        ("ALIGNER_FRAMES", (40, 120)), ("ALIGNER_TOKENS", (8, 30)),
+                        ("EMB_BATCH", 4), ("EMB_STEPS", 2), ("TRIPLETS", 3)):
+        setattr(chip_smoke, name, value)
     iface, cpu = (tiny_interface(tts_sd, voc_sd, HiFiGANGenerator(channels=64),
                                  seed=chip_smoke.SEED) for _ in range(2))
     for name, phase in (("clone", lambda: chip_smoke.phase_clone(iface, cpu, launches, "CPU")),
@@ -87,7 +109,17 @@ def main():
                             torch.device("cpu"), launches, "CPU", config=TINY)),
                         ("train", lambda: chip_smoke.phase_train(
                             torch.device("cpu"), voc_sd, StyleEmbedding().state_dict(), launches,
-                            "CPU", config=TINY))):
+                            "CPU", config=TINY)),
+                        ("vocoder_train", lambda: chip_smoke.phase_vocoder_train(
+                            cpu_dev, launches, "CPU")),
+                        ("bigvgan_train", lambda: chip_smoke.phase_bigvgan_train(
+                            cpu_dev, launches, "CPU")),
+                        ("aligner_train", lambda: chip_smoke.phase_aligner_train(cpu_dev, "CPU")),
+                        ("embedding_train", lambda: chip_smoke.phase_embedding_train(
+                            cpu_dev, "CPU")),
+                        ("wgan_qc", lambda: chip_smoke.phase_wgan_qc(cpu_dev, "CPU"))):
+        if sys.argv[1:] and name.split()[0] not in sys.argv[1:]:
+            continue
         t0 = time.perf_counter()
         phase()
         print(f"rehearsal: phase_{name} passed in {time.perf_counter() - t0:.1f} s (CPU)")

@@ -80,8 +80,9 @@ def stft_frames(audio: torch.Tensor, n_fft: int = 1024, hop: int = 256) -> torch
 
 
 def amplitude_spectrogram(audio: torch.Tensor, n_fft: int = 1024, hop: int = 256) -> torch.Tensor:
-    """|STFT| (..., n_frames, n_fft//2+1) of float32 audio, on its device."""
-    frames = stft_frames(audio.float(), n_fft, hop)
+    """|STFT| (..., n_frames, n_fft//2+1) of audio, on its device: in f32,
+    or in float64 for float64 audio (a float64 check of the vocoder loss)."""
+    frames = stft_frames(audio.to(torch.promote_types(audio.dtype, torch.float32)), n_fft, hop)
     window = torch.from_numpy(_hann_periodic(n_fft)).to(frames.device)
     return torch.fft.rfft(frames * window, dim=-1).abs()
 

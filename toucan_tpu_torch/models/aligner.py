@@ -17,7 +17,7 @@ dropout is on only where ``deterministic=False``, so the cloner's fine-tune
 (train, deterministic) is JAX's.  The aligner runs on library kernels
 (cuDNN convs and LSTM); no custom kernel is on its path, so it can train.
 MAS, the DAG dijkstra and ``alignment_from_logits`` are host numpy, copied
-from the JAX module; its on-device ``mas_jax`` is not ported.
+from the JAX module; ``mas_torch`` is its on-device ``mas_jax``.
 """
 
 from __future__ import annotations
@@ -137,6 +137,31 @@ def mas_numpy(scores: np.ndarray) -> np.ndarray:
         j = prev_ind[i, j]
     opt[0, j] = 1.0
     return opt
+
+
+def mas_torch(scores: torch.Tensor) -> torch.Tensor:
+    """MAS on the scores' device, as ``toucan_tpu/models/aligner.py::mas_jax``:
+    the same shift and log, the forward DP in float32 (-1e30 for the
+    unreachable start), the backtrack; a one-hot (frames, tokens) path,
+    that of ``mas_numpy``."""
+    scores = scores.float()
+    attn = torch.log(scores + (scores.abs().max() + 1.0))
+    frames, tokens = attn.shape
+    cols = torch.arange(tokens, device=attn.device)
+    neg_inf = torch.full((1,), -1e30, device=attn.device)
+    log_p = torch.where(cols == 0, attn[0], neg_inf)
+    prev = torch.zeros((frames, tokens), dtype=torch.long, device=attn.device)
+    for i in range(1, frames):
+        prev_move = torch.cat([neg_inf, log_p[:-1]])
+        take_move = prev_move >= log_p
+        log_p = attn[i] + torch.where(take_move, prev_move, log_p)
+        prev[i] = torch.where(take_move, cols - 1, cols)
+    path = torch.empty(frames, dtype=torch.long, device=attn.device)
+    j = torch.tensor(tokens - 1, device=attn.device)
+    for i in range(frames - 1, -1, -1):
+        path[i] = j
+        j = prev[i, j]
+    return F.one_hot(path, tokens).float()
 
 
 # -------------------------------------------------------------- dijkstra

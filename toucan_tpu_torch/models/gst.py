@@ -9,10 +9,21 @@ bank of 2000 style tokens gives the 64-dim embedding.  Parameter names are
 the reference's state-dict keys (``gst.ref_enc.convs.{3i}``, the batch norm
 at ``{3i+1}``, ``gst.ref_enc.gst`` the GRU, ``gst.stl.gst_embs`` and
 ``gst.stl.mha.linear_{q,k,v,out}``).
+
+``train=True`` is the JAX module's training call: the BatchNorms normalize
+with the batch's statistics and update the running ones as flax does
+(``nn/convolution.py::train_batch_norm``; ``update_stats=False`` leaves
+them as they are, for a step that discards them), and the output carries
+gradients.  ``train=False`` (the default) runs on the running statistics
+under ``torch.no_grad()``, whatever the module's mode.
 """
+
+import contextlib
 
 import torch
 from torch import nn
+
+from toucan_tpu_torch.nn.convolution import batch_norm
 
 GST_FRAMES = 812
 MELS = 80
@@ -49,9 +60,12 @@ class ReferenceEncoder(nn.Module):
         self.convs = nn.Sequential(*layers)
         self.gst = nn.GRU(cin * freq, REF_DIM, 2, batch_first=True)
 
-    def forward(self, speech: torch.Tensor) -> torch.Tensor:
+    def forward(self, speech: torch.Tensor, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
         """speech (B, L, 80) -> (B, 256)."""
-        x = self.convs(speech[:, None])                     # (B, C, L', F')
+        x = speech[:, None]
+        for conv, bn in zip(self.convs[::3], self.convs[1::3]):
+            x = torch.relu(batch_norm(bn, conv(x), train, update_stats))  # (B, C, L', F')
         b, c, t, f = x.shape
         # channel-major flatten per time step, as the reference views (B, L', C, F')
         x = x.transpose(1, 2).reshape(b, t, c * f)
@@ -103,11 +117,20 @@ class StyleEmbedding(nn.Module):
         super().__init__()
         self.gst = _StyleEncoder()
 
-    @torch.no_grad()
     def forward(self, spectrograms: torch.Tensor, spectrogram_lengths,
-                return_only_refs: bool = False) -> torch.Tensor:
+                return_only_refs: bool = False, train: bool = False,
+                update_stats: bool = True) -> torch.Tensor:
         """(B, L, 80), (B,) true lengths -> (B, 64), or the reference
         encoder's (B, 256) with ``return_only_refs``."""
-        tiled = tile_batch(spectrograms, spectrogram_lengths)
-        refs = self.gst.ref_enc(tiled)
-        return refs if return_only_refs else self.gst.stl(refs)
+        with contextlib.nullcontext() if train else torch.no_grad():
+            tiled = tile_batch(spectrograms, spectrogram_lengths)
+            refs = self.gst.ref_enc(tiled, train, update_stats)
+            return refs if return_only_refs else self.gst.stl(refs)
+
+    def token_spread_regularizer(self) -> torch.Tensor:
+        """The sum of the upper off-diagonal cosine similarities of the token
+        bank (the reference's O(N^2) loop, ``GST.py:80-87``, as one gram
+        matrix, as ``toucan_tpu/models/gst.py::token_spread_regularizer``)."""
+        embs = self.gst.stl.gst_embs
+        normed = embs / torch.linalg.vector_norm(embs, dim=1, keepdim=True).clamp(min=1e-8)
+        return torch.triu(normed @ normed.T, diagonal=1).sum()

@@ -12,8 +12,10 @@ version on CPU tensors.  The dense convs are ``F.conv1d`` in (B, C, T); the
 activations read and write that memory as (B, T, C) views with time
 innermost, so no transpose is copied.  Parameter names are the reference's
 state-dict keys with weight norm folded.  The Avocodo taps
-``out_proj_x1``/``out_proj_x2`` are kept as parameters for the training
-slice; inference does not run them.  With ``dtype=torch.bfloat16`` (the JAX
+``out_proj_x1``/``out_proj_x2`` run only with ``return_intermediates=True``.
+``forward(c, differentiable=True)`` is the training path: every activation
+is the plain ``nn/alias_free.py::alias_free_snake``, with autograd, and K5
+is not launched; the path is chosen by that argument alone.  With ``dtype=torch.bfloat16`` (the JAX
 generator's ``dtype``) the parameters are held in bf16, the convs run as
 bf16 cuDNN convs and every activation runs K5's bf16 instantiation; the
 wave comes back f32.
@@ -25,6 +27,8 @@ import torch
 from torch import nn
 
 from toucan_tpu_torch.kernels.aliasfree import alias_free_snake
+from toucan_tpu_torch.models.vocoders.hifigan import _at_least_f32
+from toucan_tpu_torch.nn import alias_free
 from toucan_tpu_torch.nn.convolution import same_conv
 
 
@@ -44,8 +48,9 @@ class Activation1d(nn.Module):
         super().__init__()
         self.act = SnakeBeta(channels)
 
-    def forward(self, x):
-        return alias_free_snake(x.transpose(1, 2), self.act.alpha, self.act.beta).transpose(1, 2)
+    def forward(self, x, differentiable: bool = False):
+        act = alias_free.alias_free_snake if differentiable else alias_free_snake
+        return act(x.transpose(1, 2), self.act.alpha, self.act.beta).transpose(1, 2)
 
 
 class AMPBlock(nn.Module):
@@ -60,10 +65,10 @@ class AMPBlock(nn.Module):
         self.activations = nn.ModuleList(Activation1d(channels)
                                          for _ in range(2 * len(dilations)))
 
-    def forward(self, x):
+    def forward(self, x, differentiable: bool = False):
         for i, (c1, c2) in enumerate(zip(self.convs1, self.convs2)):
-            xt = c1(self.activations[2 * i](x))
-            x = x + c2(self.activations[2 * i + 1](xt))
+            xt = c1(self.activations[2 * i](x, differentiable))
+            x = x + c2(self.activations[2 * i + 1](xt, differentiable))
         return x
 
 
@@ -96,13 +101,27 @@ class BigVGAN(nn.Module):
         """The compute dtype: that of the parameters."""
         return self.conv_pre.weight.dtype
 
-    @torch.no_grad()
-    def forward(self, c):
-        """c (B, T, 80) -> wave (B, 384*T, 1) f32."""
+    def forward(self, c, return_intermediates: bool = False, differentiable: bool = False):
+        """c (B, T, 80) -> wave (B, 384*T, 1) f32; with
+        ``return_intermediates`` (wave, x2, x1), the Avocodo taps after
+        stages 2 and 1, (B, 192*T, 1) and (B, 48*T, 1), in the JAX order.
+        ``differentiable=True`` runs the training path (module docstring);
+        the default runs under ``torch.no_grad()`` through K5."""
+        if differentiable:
+            return self._run(c, return_intermediates, True)
+        with torch.no_grad():
+            return self._run(c, return_intermediates, False)
+
+    def _run(self, c, return_intermediates: bool, differentiable: bool):
         x = self.conv_pre(c.to(self.dtype).transpose(1, 2))
         n = self.n_blocks
+        taps = {}
         for i, (up,) in enumerate(self.ups):
             x = up(x)
-            x = sum(block(x) for block in self.resblocks[i * n:(i + 1) * n]) / n
-        x = self.conv_post(self.activation_post(x))
-        return torch.tanh(x).transpose(1, 2).float()
+            x = sum(block(x, differentiable) for block in self.resblocks[i * n:(i + 1) * n]) / n
+            if return_intermediates and i in (1, 2):
+                conv = self.out_proj_x1 if i == 1 else self.out_proj_x2
+                taps[i] = _at_least_f32(conv(x).transpose(1, 2))
+        x = self.conv_post(self.activation_post(x, differentiable))
+        wave = _at_least_f32(torch.tanh(x).transpose(1, 2))
+        return (wave, taps[2], taps[1]) if return_intermediates else wave

@@ -24,8 +24,14 @@ taken for parity with the JAX generator and changes nothing in the port: it
 selects the JAX kernel's dense folded weights, which give the same int8
 values and exact integer sums, so both compute the port's one stage.
 Parameter names are the reference's state-dict keys with weight norm folded.  The Avocodo taps
-``out_proj_x1``/``out_proj_x2`` are kept as parameters for the training
-slice; inference does not run them.
+``out_proj_x1``/``out_proj_x2`` run only with ``return_intermediates=True``
+(their only reader is the CoMBD critic of training).
+
+``forward(c, differentiable=True)`` is the training path: every stage runs
+``ResidualStack.forward`` on cuDNN convs, with autograd, and no kernel is
+launched (the kernels have no backward and their wrappers refuse grad).
+The path is chosen by that argument alone, never by the grad mode.  The
+default path runs under ``torch.no_grad()`` through the kernels as above.
 
 ``dtype=torch.bfloat16`` is the JAX generator's ``dtype=bfloat16``: the
 parameters are held in bf16, the input conv, the upsamplers and the output
@@ -53,6 +59,11 @@ from toucan_tpu_torch.kernels.stage import (MODES, QuantizedStage, calibrate_sta
 from toucan_tpu_torch.nn.convolution import same_conv
 
 
+def _at_least_f32(x):
+    """f32 from bf16 (the wave comes back f32), float64 kept (a float64 check)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 class ResidualStack(nn.Module):
     """LReLU -> dilated conv -> LReLU -> conv, 3 rounds, residual."""
 
@@ -64,6 +75,12 @@ class ResidualStack(nn.Module):
         self.convs2 = nn.ModuleList(
             nn.Sequential(nn.LeakyReLU(slope), same_conv(channels, channels, kernel_size))
             for _ in dilations)
+
+    def forward(self, x):
+        """(B, C, T) -> (B, C, T), differentiable (the training path)."""
+        for c1, c2 in zip(self.convs1, self.convs2):
+            x = x + c2(c1(x))
+        return x
 
 
 class HiFiGANGenerator(nn.Module):
@@ -169,19 +186,44 @@ class HiFiGANGenerator(nn.Module):
         return (self.imcol_mode in MODES and i in self.imcol_stages
                 and self.upsamples[i][1].out_channels <= 128)
 
-    @torch.no_grad()
-    def forward(self, c, act_scales=None):
-        """c (B, T, 80) -> wave (B, 384*T, 1).  ``act_scales``: {stage: (18,)}
-        from ``calibrate_act_scales``, needed by stage_mode="int8"."""
-        return self._run(c, act_scales)
+    def forward(self, c, act_scales=None, return_intermediates: bool = False,
+                differentiable: bool = False):
+        """c (B, T, 80) -> wave (B, 384*T, 1); with ``return_intermediates``
+        (wave, x2, x1), the Avocodo taps after stages 2 and 1, (B, 192*T, 1)
+        and (B, 48*T, 1), in the JAX generator's order.  ``act_scales``:
+        {stage: (18,)} from ``calibrate_act_scales``, needed by
+        stage_mode="int8".  ``differentiable=True`` runs the training path
+        (see the module's docstring)."""
+        if differentiable:
+            return self._train_forward(c, return_intermediates)
+        with torch.no_grad():
+            return self._run(c, act_scales, return_intermediates=return_intermediates)
 
-    def _run(self, c, act_scales=None, stage_inputs=None):
+    def _train_forward(self, c, return_intermediates: bool):
+        x = self.input_conv(c.to(self.dtype).transpose(1, 2))
+        n = len(self.resblock_kernel_sizes)
+        taps = {}
+        for i, up in enumerate(self.upsamples):
+            x = up(x)
+            x = sum(block(x) for block in self.blocks[i * n:(i + 1) * n]) / n
+            if return_intermediates and i in (1, 2):
+                taps[i] = self._tap(i, x)
+        wave = _at_least_f32(self.output_conv(x).transpose(1, 2))
+        return (wave, taps[2], taps[1]) if return_intermediates else wave
+
+    def _tap(self, i: int, x):
+        """The Avocodo tap after stage i (1 or 2) of (B, C, T) -> (B, T, 1)."""
+        conv = self.out_proj_x1 if i == 1 else self.out_proj_x2
+        return _at_least_f32(conv(x).transpose(1, 2))
+
+    def _run(self, c, act_scales=None, stage_inputs=None, return_intermediates=False):
         """The generator; with a list ``stage_inputs`` it records each
         stage's (B, T, C) input and runs the stages as the JAX calibration
         pass does, ``stage_mode`` aside: K4 where ``imcol_mode`` takes the
         stage, K2 elsewhere (K3 bf16 in a bf16 generator)."""
         dt = self.dtype
         x = self.input_conv(c.to(dt).transpose(1, 2))
+        taps = {}
         for i, up in enumerate(self.upsamples):
             x = up(x).transpose(1, 2).contiguous()
             if stage_inputs is not None:
@@ -197,7 +239,10 @@ class HiFiGANGenerator(nn.Module):
             else:
                 x = hifigan_stage(x, self.stage_weights(i))
             x = x.to(dt).transpose(1, 2)
-        return self.output_conv(x).transpose(1, 2).float()
+            if return_intermediates and i in (1, 2):
+                taps[i] = self._tap(i, x)
+        wave = self.output_conv(x).transpose(1, 2).float()
+        return (wave, taps[2], taps[1]) if return_intermediates else wave
 
 
 @torch.no_grad()

@@ -29,20 +29,34 @@ def same_conv(c_in, c_out, kernel_size, dilation=1, groups=1, bias=True) -> nn.C
 FLAX_MOMENTUM = 0.9  # flax's BatchNorm(momentum=0.9) is PyTorch's momentum=0.1
 
 
-def train_batch_norm(norm: nn.BatchNorm1d, x):
-    """(B, C, T) normalized by the batch's mean and biased variance over
-    (B, T); the running statistics become ``0.9 * old + 0.1 * batch`` with
-    the *biased* variance, as flax keeps ``batch_stats`` (PyTorch's own
-    update would use the unbiased one)."""
+def train_batch_norm(norm: nn.modules.batchnorm._BatchNorm, x, update: bool = True):
+    """(B, C, ...) normalized by the batch's mean and biased variance over
+    every axis but C; with ``update`` the running statistics become
+    ``0.9 * old + 0.1 * batch`` with the *biased* variance, as flax keeps
+    ``batch_stats`` (PyTorch's own update would use the unbiased one)."""
     momentum = FLAX_MOMENTUM
-    mean = x.mean(dim=(0, 2))
-    var = (x - mean[:, None]).square().mean(dim=(0, 2))
-    with torch.no_grad():
-        norm.running_mean.mul_(momentum).add_((1 - momentum) * mean)
-        norm.running_var.mul_(momentum).add_((1 - momentum) * var)
-        norm.num_batches_tracked.add_(1)
-    y = (x - mean[:, None]) * torch.rsqrt(var + norm.eps)[:, None]
-    return y * norm.weight[:, None] + norm.bias[:, None]
+    dims = (0,) + tuple(range(2, x.dim()))
+    shape = (-1,) + (1,) * (x.dim() - 2)
+    mean = x.mean(dim=dims)
+    var = (x - mean.view(shape)).square().mean(dim=dims)
+    if update:
+        with torch.no_grad():
+            norm.running_mean.mul_(momentum).add_((1 - momentum) * mean)
+            norm.running_var.mul_(momentum).add_((1 - momentum) * var)
+            norm.num_batches_tracked.add_(1)
+    y = (x - mean.view(shape)) * torch.rsqrt(var + norm.eps).view(shape)
+    return y * norm.weight.view(shape) + norm.bias.view(shape)
+
+
+def batch_norm(norm: nn.modules.batchnorm._BatchNorm, x, train: bool = False,
+               update: bool = True):
+    """flax's ``BatchNorm(use_running_average=not train)`` on (B, C, ...),
+    whatever the module's mode: ``train_batch_norm`` or the running
+    statistics."""
+    if train:
+        return train_batch_norm(norm, x, update)
+    return F.batch_norm(x, norm.running_mean, norm.running_var, norm.weight, norm.bias,
+                        training=False, eps=norm.eps)
 
 
 class ConformerConvModule(nn.Module):
@@ -60,9 +74,7 @@ class ConformerConvModule(nn.Module):
         if mask is not None:
             x = x * mask
         x = self.depthwise_conv(x.transpose(1, 2))
-        n = self.norm
-        x = (train_batch_norm(n, x) if train else
-             F.batch_norm(x, n.running_mean, n.running_var, n.weight, n.bias, False, 0.0, n.eps))
+        x = batch_norm(self.norm, x, train)
         return conv_btc(self.pointwise_conv2, F.silu(x.transpose(1, 2)))
 
 

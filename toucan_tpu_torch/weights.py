@@ -9,8 +9,10 @@ convert_toucan_tts``, ``compat/torch_vocoder.py::convert_hifigan`` /
 ``compat/torch_aligner.py::convert_aligner``,
 ``compat/torch_gan.py::convert_resnet_g`` and
 ``compat/torch_stochastic.py::convert_stochastic_toucan_tts``, and give the
-spectrogram discriminator, the embedding VAE and a JAX train state theirs:
-only layouts change (flax (k, in, out) conv kernels and (in, out) dense
+spectrogram discriminator, the embedding VAE, a JAX train state, the
+vocoders' joint critic (both ways), a JAX vocoder train state, the
+aligner's ``TinyTTS`` and the WGAN-QC critic theirs: only layouts change
+(flax (k, in, out) conv kernels and (in, out) dense
 kernels become torch (out, in, k) and (out, in)), never values.  No JAX
 is needed to call them.
 """
@@ -263,12 +265,7 @@ def train_state_from_jax(state, params, batch_stats, buffers, mu, nu, count: int
         modules.append((state.disc, disc_sd))
     state.optimizer.state.clear()
     for module, convert in modules:
-        m, v = convert(mu), convert(nu)
-        for name, p in module.named_parameters():
-            state.optimizer.state[p] = {
-                "step": torch.tensor(float(count)),
-                "exp_avg": m[name].to(p.device).reshape(p.shape),
-                "exp_avg_sq": v[name].to(p.device).reshape(p.shape)}
+        load_optimizer_state(state.optimizer, module, convert, mu, nu, count)
     state.scheduler.jump_to(count)
     state.step = int(step)
     return state
@@ -422,4 +419,154 @@ def resnet_g_from_jax(variables, size: int = 4) -> dict:
     w.sd["conv_img.weight"] = _t(np.transpose(np.asarray(p["conv_img"]["kernel"]), (3, 2, 0, 1)))
     w.sd["conv_img.bias"] = _t(p["conv_img"]["bias"])
     w.linear("fc_out", p["fc_out"])
+    return w.sd
+
+
+# ----------------------------------------------------------------- training
+
+def _conv_to_torch(kernel) -> torch.Tensor:
+    """flax (*k, in, out) -> torch (out, in, *k)."""
+    a = np.asarray(kernel)
+    n = a.ndim - 2
+    return _t(np.transpose(a, (n + 1, n) + tuple(range(n))))
+
+
+def _conv_to_jax(weight) -> np.ndarray:
+    """torch (out, in, *k) -> flax (*k, in, out)."""
+    a = np.asarray(weight)
+    n = a.ndim - 2
+    return np.transpose(a, tuple(range(2, n + 2)) + (1, 0))
+
+
+def _normed_convs(module):
+    """(path, NormedConv) of every normed conv of a critic, in module order."""
+    from toucan_tpu_torch.nn.param_norm import NormedConv
+    return [(name, m) for name, m in module.named_modules() if isinstance(m, NormedConv)]
+
+
+def _node(tree, path: str):
+    for key in path.split("."):
+        tree = tree[key]
+    return tree
+
+
+def avocodo_discriminator_from_jax(variables, discriminator, start_vector=None) -> dict:
+    """JAX ``AvocodoJointDiscriminator`` variables -> the state dict of the
+    port's ``discriminator`` (built with the same ``channel_scale`` and
+    segment).  Each conv is found by its path, which is the JAX module
+    path: weight norm's ``v`` (*k, in/g, out) and ``g`` (out,) become
+    ``weight_v`` (out, in/g, *k) and ``weight_g`` (out, 1, ...); the other
+    kernels become ``weight`` unchanged in value.  ``start_vector(out)``
+    gives a spectral conv's power-iteration start (JAX's is
+    ``jax.random.normal(jax.random.PRNGKey(7), (out,))``, which the caller
+    computes); without it each keeps the discriminator's own."""
+    params = variables["params"]
+    sd = {}
+    for path, conv in _normed_convs(discriminator):
+        p = _node(params, path)
+        if conv.norm == "weight":
+            v = _conv_to_torch(p["v"])
+            sd[f"{path}.weight_v"] = v
+            sd[f"{path}.weight_g"] = _t(p["g"]).reshape((-1,) + (1,) * (v.dim() - 1))
+        else:
+            sd[f"{path}.weight"] = _conv_to_torch(p["kernel"])
+        sd[f"{path}.bias"] = _t(p["bias"])
+        if conv.norm == "spectral":
+            u0 = (conv.u0 if start_vector is None
+                  else _t(start_vector(conv.weight.shape[0])))
+            sd[f"{path}.u0"] = (u0 / (torch.linalg.vector_norm(u0) + 1e-12)).cpu()
+    return sd
+
+
+def avocodo_discriminator_to_jax(discriminator) -> dict:
+    """The port's critic -> JAX ``{"params": ...}`` (numpy), the inverse of
+    ``avocodo_discriminator_from_jax`` (the start vectors stay behind: JAX
+    draws its own)."""
+    params = {}
+    for path, conv in _normed_convs(discriminator):
+        node = params
+        for key in path.split("."):
+            node = node.setdefault(key, {})
+        if conv.norm == "weight":
+            node["v"] = _conv_to_jax(conv.weight_v.detach().cpu())
+            node["g"] = conv.weight_g.detach().cpu().numpy().reshape(-1)
+        else:
+            node["kernel"] = _conv_to_jax(conv.weight.detach().cpu())
+        node["bias"] = conv.bias.detach().cpu().numpy()
+    return {"params": params}
+
+
+def load_optimizer_state(optimizer, module, convert, mu, nu, count: int):
+    """Put optax Adam-family moments ``mu``/``nu`` (JAX trees, numpy, of the
+    layout ``convert`` turns into ``module``'s state dict) and their
+    ``count`` into a torch optimizer over ``module``'s parameters (state
+    keys ``step``, ``exp_avg``, ``exp_avg_sq``)."""
+    m, v = convert(mu), convert(nu)
+    for name, p in module.named_parameters():
+        optimizer.state[p] = {"step": torch.tensor(float(count)),
+                              "exp_avg": m[name].to(p.device).reshape(p.shape),
+                              "exp_avg_sq": v[name].to(p.device).reshape(p.shape)}
+
+
+def vocoder_train_state_from_jax(state, g_params, d_params, g_mu, g_nu, d_mu, d_nu,
+                                 g_count: int, d_count: int, step: int,
+                                 kind: str = "hifigan", start_vector=None):
+    """Carry a JAX ``VocoderTrainState`` into the port's ``state``
+    (``train/vocoder_train.py``), in place: both nets' parameters, RAdam's
+    ``mu``/``nu``/``count`` of each (numpy trees of the states'
+    ``ScaleByAdamState``) and the step, so that a JAX run resumes here.
+    ``kind`` names the generator ("hifigan" or "bigvgan")."""
+    gen_convert = {"hifigan": hifigan_from_jax, "bigvgan": bigvgan_from_jax}[kind]
+    g_sd = lambda tree: gen_convert({"params": tree})  # noqa: E731
+    d_sd = lambda tree: avocodo_discriminator_from_jax(  # noqa: E731
+        {"params": tree}, state.discriminator, start_vector)
+    state.generator.load_state_dict(g_sd(g_params))
+    state.discriminator.load_state_dict(d_sd(d_params))
+    for opt, sched, module, convert, mu, nu, count in (
+            (state.g_optimizer, state.g_scheduler, state.generator, g_sd, g_mu, g_nu, g_count),
+            (state.d_optimizer, state.d_scheduler, state.discriminator, d_sd, d_mu, d_nu,
+             d_count)):
+        opt.state.clear()
+        load_optimizer_state(opt, module, convert, mu, nu, count)
+        sched.jump_to(count)
+    state.step = int(step)
+    return state
+
+
+def tiny_tts_from_jax(variables) -> dict:
+    """JAX ``TinyTTS`` variables -> the port's ``train/aligner_train.py::
+    TinyTTS`` state dict: each layer's directions as ``rnn{i}.*_l0`` and
+    ``rnn{i}.*_l0_reverse``."""
+    p = variables["params"]
+    w = _Writer()
+    w.linear("in_proj", p["in_proj"])
+    for i in (1, 2):
+        for direction, suffix in (("fwd", ""), ("bwd", "_reverse")):
+            d = p[f"rnn{i}_{direction}"]
+            w.sd[f"rnn{i}.weight_ih_l0{suffix}"] = _t(np.asarray(d["w_ih"]["kernel"]).T)
+            w.sd[f"rnn{i}.weight_hh_l0{suffix}"] = _t(np.asarray(d["w_hh_kernel"]).T)
+            w.sd[f"rnn{i}.bias_ih_l0{suffix}"] = _t(d["w_ih"]["bias"])
+            w.sd[f"rnn{i}.bias_hh_l0{suffix}"] = _t(d["w_hh_bias"])
+    w.linear("out_proj", p["out_proj"])
+    return w.sd
+
+
+def resnet_d_from_jax(variables, size: int = 4) -> dict:
+    """JAX ``ResNetD`` variables -> the port's ``ResNetD`` state dict, for a
+    critic of image side ``size``: ``block_{k}`` goes to ``resnet.{k}`` for
+    the first two blocks and to ``resnet.{2k - 1}`` after them (each later
+    block follows a pool)."""
+    p = variables["params"]
+    w = _Writer()
+    w.linear("fc_input", p["fc_input"])
+    w.sd["conv_img.weight"] = _conv_to_torch(p["conv_img"]["kernel"])
+    w.sd["conv_img.bias"] = _t(p["conv_img"]["bias"])
+    for k in range(2 + int(np.log2(size / 4))):
+        bp, key = p[f"block_{k}"], f"resnet.{k if k < 2 else 2 * k - 1}"
+        for conv in ("conv_0", "conv_1", "conv_s"):
+            if conv in bp:
+                w.sd[f"{key}.{conv}.weight"] = _conv_to_torch(bp[conv]["kernel"])
+                if "bias" in bp[conv]:
+                    w.sd[f"{key}.{conv}.bias"] = _t(bp[conv]["bias"])
+    w.linear("fc", p["fc"])
     return w.sd
