@@ -188,6 +188,31 @@ Phases, each reported on its own lines:
    - wgan_qc: ``ResNetG()`` and ``ResNetD()``, batch 32, 5 steps with the
      host LP timed apart; one step with ``z``, the potentials and the
      ordered reals given to both sides.
+16. distribution (last), its ranks started with ``spawn`` after the build
+   (``dist/launch.py::run_ranks``: a clock each, the group torn down on a
+   failure), sizes in DIST:
+   - dist_train: one NCCL rank at world size 1 (mesh 1x1), then two gloo
+     ranks sharing the card (NCCL refuses two ranks on one device) on
+     meshes 2x1 and 1x2: the full-width ToucanTTS step with the critic
+     (each rank batch 12 on 2x1, against one process at batch 24), the
+     full-width HiFiGAN GAN step with the critic update (batch 2) and the
+     aligner step (batch 2 of unequal lengths), each in float64 within
+     TOL_DIST64 of each tensor's peak of one process on the global batch
+     (the acoustic one also in float32, printed);
+   - sharded_ckpt: on the two ranks, a full-width state (depth cut) saved
+     on the 1x2 layout at two steps, restored onto 1x2 and 2x1, and the SWA
+     of both: every tensor equal to the saved state, gathered whole;
+   - longform: full-width HiFiGAN (K2) and BigVGAN (K5), biases live, on
+     4099 frames time-sharded over the two ranks against the unsharded
+     synthesis (TOL_LONGFORM), each rank's launches (its chunk and the
+     tail's window); then ``ToucanTTSInterface(mesh=...,
+     longform_frames=1024)`` on LONG_TEXT with durations and glow noise
+     given (K1 12 and K2 a rank) against the same interface without a
+     mesh, its mel vocoded whole;
+   - pipelined: ``PipelinedSynthesizer`` on the card, six batches, each wave
+     against its standalone dispatch (TOL_PIPE), K1 12 and K2 4 a batch;
+     ``bench_pipelined_vs_sequential`` (one card: ``two_stage`` False);
+   - scaling: ``dist/scaling_bench.py::measure(1, 1)`` at full width.
 
 It then prints one JSON line of per-kernel numbers, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.  Any failure exits
@@ -202,6 +227,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -217,10 +243,16 @@ from toucan_tpu_torch.data import batching
 from toucan_tpu_torch.data.extraction import compute_frame_energy
 from toucan_tpu_torch.data.prefetch import to_tensors
 from toucan_tpu_torch.data.vocoder_data import SEGMENT_24K, VocoderDataset
+from toucan_tpu_torch.dist.longform import synthesize_longform
+from toucan_tpu_torch.dist.mesh import (all_gather, make_global_batch, make_mesh,
+                                        shard_train_state)
+from toucan_tpu_torch.dist.scaling_bench import measure
+from toucan_tpu_torch.dist.tensor_parallel import unshard
 from toucan_tpu_torch.frontend.inventory import phone_feature_matrix, vectors_to_ctc_ids
 from toucan_tpu_torch.frontend.text import TextFrontend
 from toucan_tpu_torch.infer.cloner import UtteranceCloner
 from toucan_tpu_torch.infer.controllable import ControllableInterface
+from toucan_tpu_torch.infer.pipelined import PipelinedSynthesizer, bench_pipelined_vs_sequential
 from toucan_tpu_torch.infer.interface import (FRAMES_PER_PHONE, PHONE_BUCKET,
                                               SENTENCE_JOIN_SILENCE, ToucanTTSInterface,
                                               _round_up, write_wav)
@@ -254,8 +286,10 @@ from toucan_tpu_torch.models.vocoders.discriminators import AvocodoJointDiscrimi
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 from toucan_tpu_torch.nn import positional
 from toucan_tpu_torch.recipes.pipelines import _aligner_train_fn, aligner_batch, avocodo_pipeline
+from toucan_tpu_torch.train import sharded_checkpointing as sharded_ckpt
 from toucan_tpu_torch.train.aligner_train import (TinyTTS, create_aligner_train_state,
-                                                  make_aligner_train_step)
+                                                  make_aligner_train_step,
+                                                  make_sharded_aligner_step)
 from toucan_tpu_torch.train.embedding_train import (create_embedding_train_state,
                                                     make_embedding_train_step,
                                                     make_finetune_step,
@@ -264,6 +298,7 @@ from toucan_tpu_torch.train.loop import train_loop
 from toucan_tpu_torch.train.toucan_train import (ZERO_GRADIENTS, compute_gradients,
                                                  create_train_state, make_train_step)
 from toucan_tpu_torch.train.vocoder_train import (create_vocoder_train_state,
+                                                  make_sharded_vocoder_steps,
                                                   make_vocoder_train_step, spectral_sigmas)
 from toucan_tpu_torch.utils.device import matmul_precision
 
@@ -2192,15 +2227,15 @@ TOL_VAE = 1e-5
 STOCHASTIC_FRAMES = 1024
 
 
-def training_data(seed, n=TRAIN_UTTERANCES, mels=80):
+def training_data(seed, n=TRAIN_UTTERANCES, mels=80, phones=(40, 120), per_phone=(1, 12)):
     """Seeded datapoints shaped like real utterances: 40-120 phones of
     binary articulatory features, 1-12 frames a phone (~200-1000 mel
     frames), a pitch and an energy per phone, two language ids."""
     rng = np.random.RandomState(seed)
     data = []
     for i in range(n):
-        t = rng.randint(40, 121)
-        durations = rng.randint(1, 13, size=t)
+        t = rng.randint(phones[0], phones[1] + 1)
+        durations = rng.randint(per_phone[0], per_phone[1] + 1, size=t)
         frames = int(durations.sum())
         data.append(dict(text=(rng.rand(t, 62) > 0.5).astype(np.float32),
                          mel=(rng.randn(frames, mels) - 5.0).astype(np.float32),
@@ -2757,16 +2792,17 @@ def phase_bigvgan_train(dev, launches, card):
     log("bigvgan_train", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
-def aligner_data(seed, n=24):
+def aligner_data(seed, n=24, frame_range=None, token_range=None):
     """Seeded aligner datapoints: ALIGNER_TOKENS phones drawn from the
-    inventory and mels of ALIGNER_FRAMES frames, at least 3 frames a phone (feasible for CTC),
-    a speaker embedding each."""
+    inventory and mels of ALIGNER_FRAMES frames (or the ranges given), at
+    least 3 frames a phone (feasible for CTC), a speaker embedding each."""
+    frame_range, token_range = frame_range or ALIGNER_FRAMES, token_range or ALIGNER_TOKENS
     rng = np.random.RandomState(seed)
     phones = phone_feature_matrix()
     data = []
     for _ in range(n):
-        tokens = rng.randint(ALIGNER_TOKENS[0], ALIGNER_TOKENS[1] + 1)
-        frames = rng.randint(max(ALIGNER_FRAMES[0], 3 * tokens), ALIGNER_FRAMES[1] + 1)
+        tokens = rng.randint(token_range[0], token_range[1] + 1)
+        frames = rng.randint(max(frame_range[0], 3 * tokens), frame_range[1] + 1)
         data.append(dict(text=phones[rng.randint(0, len(phones), tokens)].astype(np.float32),
                          mel=(rng.randn(frames, 80) - 4.0).astype(np.float32),
                          speaker_embedding=rng.randn(192).astype(np.float32)))
@@ -2973,6 +3009,549 @@ def phase_wgan_qc(dev, card):
     log("wgan_qc", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
+# ------------------------------------------------------------- distribution
+
+# The distribution phases.  Two gloo ranks share the card (NCCL refuses two
+# ranks on one device; gloo takes all_reduce on CUDA tensors, which every
+# gather of the port is written as), and one NCCL rank runs at world size 1,
+# which builds a real communicator and runs each collective on the card.
+# The ranks are processes started with ``spawn`` after the kernels were
+# built, so each loads the built libraries; every rank has its own clock
+# and a failure tears the group down (``dist/launch.py::run_ranks``).  The
+# sizes are in DIST, which the CPU rehearsal shrinks.
+DIST = dict(
+    device="cuda:0", nccl=True, count=True, timeout_s=900,
+    config={},                    # ToucanTTSConfig fields: the default, full width
+    vocoder={},                   # HiFiGANGenerator / BigVGAN kwargs: full width
+    critic_scale=1.0, aligner={}, tinytts={},
+    train_batch=24, train_phones=(20, 60), train_frames=(1, 4),
+    ckpt_depth=dict(enc_layers=2, dec_layers=2, glow_blocks=6),  # full width, depth cut
+    voc_frames=VOC_CHECK_FRAMES, aligner_frames=(200, 400), aligner_tokens=(20, 60),
+    longform_frames=4099, iface_longform=1024, iface_frames_per_phone=10,
+    pipe_batches=6, pipe_batch=2, pipe_phones=64, pipe_frames=1024,
+    scaling=dict(batch_per_device=8, tmax=64, lmax=384, steps=10))
+# a mesh step in float64 against the single-process step on the global batch,
+# of each tensor's peak (the bar of check_train_step_against_cpu's float64)
+TOL_DIST64 = 1.8e-7
+TOL_LONGFORM = 2e-5       # the HiFiGAN wave's bar (tests/test_longform.py)
+TOL_PIPE = 1e-6           # a streamed wave against its standalone dispatch
+
+
+def dist_acoustic_batch(spec):
+    """The global batch (padded to its dataset's shapes, as every rank pads
+    its share) and the critic's window starts, drawn once for all rows."""
+    points = training_data(SEED + 141, spec["train_batch"], phones=spec["train_phones"],
+                           per_phone=spec["train_frames"])
+    pad_to = (batching._ceil_to(max(len(p["text"]) for p in points), 32),
+              batching._ceil_to(max(len(p["mel"]) for p in points), 64))
+    batch = batching.pad_batch(points, pad_to=pad_to)
+    g = torch.Generator().manual_seed(SEED + 142)
+    starts = (torch.rand(len(points), generator=g)
+              * torch.from_numpy(batch["speech_lengths"]).double()).long()
+    return batch, starts
+
+
+def _rows(mesh, b):
+    if mesh is None:
+        return slice(0, b)
+    n, r = mesh.size(0), mesh.get_local_rank("data")
+    return slice(r * b // n, (r + 1) * b // n)
+
+
+def _whole(module, prefix):
+    """{prefix.name: (gradient, parameter)} whole, float64 copies on the
+    device (sharded ones gathered over 'model': a collective)."""
+    return {f"{prefix}.{k}": (unshard(p, p.grad).double().clone(), unshard(p, p).double().clone())
+            for k, p in module.named_parameters()}
+
+
+def dist_acoustic_step(spec, dev, dtype, mesh):
+    """One ToucanTTS step with the critic, dropout 0, of a fresh seeded
+    state, on the mesh (this rank's rows) or in one process (``mesh=None``,
+    the global batch): (metrics, {name: (gradient, parameter after)},
+    BatchNorm statistics)."""
+    cfg = dataclasses.replace(ToucanTTSConfig(**spec["config"]), dropout=0.0,
+                              duration_dropout=0.0, pitch_dropout=0.0, energy_dropout=0.0)
+    torch.manual_seed(SEED)
+    gst_sd = StyleEmbedding().state_dict()
+    state = create_train_state(cfg, gst_sd, use_discriminator=True, device=dev, seed=SEED)
+    state.model.conv_postnet.dropout_rate = 0.0
+    for m in (state.model, state.disc, state.gst):
+        m.to(dtype)
+    batch, starts = dist_acoustic_batch(spec)
+    if mesh is not None:
+        shard_train_state(state, mesh)
+        tensors = make_global_batch(batch, mesh, dev)
+    else:
+        tensors = to_tensors(batch, dev)
+    tensors = {k: v.to(dtype) if v.is_floating_point() else v for k, v in tensors.items()}
+    starts = starts[_rows(mesh, len(starts))].to(dev)
+    with matmul_precision("float32"):
+        metrics = make_train_step(True, True, mesh=mesh)(state, tensors, window_starts=starts)
+    stats = {k: b.double().clone() for k, b in state.model.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    return ({k: v.item() for k, v in metrics.items()},
+            {**_whole(state.model, "tts"), **_whole(state.disc, "disc")}, stats)
+
+
+def dist_vocoder_step(spec, dev, dtype, mesh):
+    """One adversarial HiFiGAN step with the critic update at batch 2 (one
+    segment a data rank), seeded: (metrics, {name: (gradient, parameter)},
+    the spectral sigmas)."""
+    frames = spec["voc_frames"]
+    torch.manual_seed(SEED + 143)
+    gen = HiFiGANGenerator(**spec["vocoder"])
+    disc = AvocodoJointDiscriminator(segment=frames * 384, channel_scale=spec["critic_scale"],
+                                     generator=torch.Generator().manual_seed(SEED + 144))
+    state = create_vocoder_train_state(gen, disc, device=dev)
+    for m in (state.generator, state.discriminator):
+        m.to(dtype)
+    if mesh is not None:
+        _, step, state = make_sharded_vocoder_steps(state, mesh)
+    else:
+        step = make_vocoder_train_step(use_adversarial=True)
+    rng = np.random.RandomState(SEED + 145)
+    batch = {"gold_wave": 0.1 * rng.randn(2, frames * 384, 1),
+             "mel": rng.randn(2, frames, 80) - 4.0}
+    rows = _rows(mesh, 2)
+    batch = {k: torch.from_numpy(v[rows]).to(dev, dtype) for k, v in batch.items()}
+    with matmul_precision("float32"):
+        metrics = step(state, batch, True)
+        sigmas = {k: v.item() for k, v in spectral_sigmas(state.discriminator).items()}
+    return ({k: v.item() for k, v in metrics.items()},
+            {**_whole(state.generator, "g"), **_whole(state.discriminator, "d")}, sigmas)
+
+
+def dist_aligner_step(spec, dev, dtype, mesh):
+    """One aligner step (step 1000, deterministic) at batch 2 of unequal
+    lengths, seeded: (metrics, {name: (gradient, parameter)}, statistics)."""
+    data = aligner_data(SEED + 146, 2, spec["aligner_frames"], spec["aligner_tokens"])
+    pad_to = (batching._ceil_to(max(len(vectors_to_ctc_ids(d["text"])) for d in data), 8),
+              batching._ceil_to(max(len(d["mel"]) for d in data), 64))
+    torch.manual_seed(SEED + 147)
+    state = create_aligner_train_state(device=dev, asr=Aligner(**spec["aligner"]),
+                                       tts=TinyTTS(**spec["tinytts"]))
+    for m in (state.asr, state.tts):
+        m.to(dtype)
+    state.step = 1000
+    step = make_aligner_train_step()
+    if mesh is not None:
+        step, state = make_sharded_aligner_step(state, mesh)
+    batch = aligner_batch(data[_rows(mesh, 2)], pad_to=pad_to)
+    batch = {k: v.to(dtype) if v.is_floating_point() else v
+             for k, v in to_tensors(batch, dev).items()}
+    with matmul_precision("float32"):
+        metrics = step(state, batch, deterministic=True)
+    stats = {k: b.double().clone() for k, b in state.asr.named_buffers()
+             if k.endswith(("running_mean", "running_var"))}
+    return ({k: v.item() for k, v in metrics.items()},
+            {**_whole(state.asr, "asr"), **_whole(state.tts, "tts")}, stats)
+
+
+def step_errors(got, want, zero=()):
+    """(worst share of its tensor's peak over metrics, gradients, updated
+    parameters and the third part, where; the largest of the gradients
+    named by ``zero`` (0 in exact arithmetic) as a share of the largest)."""
+    (m_got, t_got, o_got), (m_want, t_want, o_want) = got, want
+    errs = [(abs(m_got[k] - v) / max(abs(v), 1e-30), f"metric {k}") for k, v in m_want.items()]
+    peak = max(g.abs().max().item() for g, _ in t_want.values())
+    zero_share = 0.0
+    for k, (g, p) in t_want.items():
+        if zero and k.endswith(tuple(zero)):
+            zero_share = max(zero_share, max(g.abs().max().item(),
+                                             t_got[k][0].abs().max().item()) / peak)
+        else:
+            errs.append(((t_got[k][0] - g).abs().max().item() / max(g.abs().max().item(), 1e-300),
+                         f"gradient {k}"))
+        errs.append(((t_got[k][1] - p).abs().max().item() / max(p.abs().max().item(), 1e-300),
+                     f"parameter {k}"))
+    for k, v in o_want.items():
+        v, w = (torch.as_tensor(t, dtype=torch.float64) for t in (o_got[k], v))
+        errs.append(((v - w).abs().max().item() / max(w.abs().max().item(), 1e-300), k))
+    return max(errs), zero_share
+
+
+def dist_step_checks(spec, dev, meshes, rank, fns):
+    """Each named step on each mesh against one process on the global batch
+    in float64 (held), and where asked in float32 (printed); rank 0
+    compares."""
+    out = {}
+    for name, (fn, zero, dtypes) in fns.items():
+        t0 = time.perf_counter()
+        single = {dt: fn(spec, dev, dt, None) for dt in dtypes} if rank == 0 else {}
+        single_s = time.perf_counter() - t0
+        for label, mesh in meshes.items():
+            t0 = time.perf_counter()
+            got = {dt: fn(spec, dev, dt, mesh) for dt in dtypes}
+            if rank == 0:
+                row = dict(seconds=time.perf_counter() - t0, single_seconds=single_s,
+                           metrics=got[dtypes[-1]][0])
+                (row["err64"], row["at64"]), row["zero64"] = step_errors(
+                    got[torch.float64], single[torch.float64], zero)
+                if torch.float32 in dtypes:
+                    (row["err32"], row["at32"]), _ = step_errors(
+                        got[torch.float32], single[torch.float32], zero)
+                out[f"{name} {label}"] = row
+            del got
+        del single
+    return out
+
+
+def _state_snapshot(state):
+    """Every tensor of a train state whole, and its step and schedule."""
+    out = {"step": state.step, "scheduler": state.scheduler.state_dict()}
+    for net, m in (("model", state.model), ("disc", state.disc)):
+        for k, p in m.named_parameters():
+            out[f"{net}.{k}"] = unshard(p, p).cpu().clone()
+            for key, v in state.optimizer.state[p].items():
+                out[f"{net}.{k}.{key}"] = (unshard(p, v) if v.dim() else v).cpu().clone()
+        for k, b in m.named_buffers():
+            out[f"{net}.{k}"] = b.cpu().clone()
+    return out
+
+
+def _same_snapshots(got, want):
+    bad = [k for k, v in want.items()
+           if not (torch.equal(got[k], v) if torch.is_tensor(v) else got[k] == v)]
+    return bad
+
+
+def dist_checkpoints(spec, dev, world, directory):
+    """Two float32 steps on the (1, n) layout, each saved; restored onto
+    (1, n) and (n, 1); the SWA of both: every tensor equal to the saved
+    state's, gathered whole.  Full width, the depth cut (``ckpt_depth``)."""
+    layouts = {"1xn": make_mesh(1, world, device_type=dev.type),
+               "nx1": make_mesh(world, 1, device_type=dev.type)}
+    cfg = dataclasses.replace(ToucanTTSConfig(**{**spec["config"], **spec["ckpt_depth"]}),
+                              dropout=0.0, duration_dropout=0.0, pitch_dropout=0.0,
+                              energy_dropout=0.0)
+    torch.manual_seed(SEED)
+    gst_sd = StyleEmbedding().state_dict()
+
+    def fresh(layout, seed):
+        state = create_train_state(cfg, gst_sd, use_discriminator=True, device=dev, seed=seed)
+        state.model.conv_postnet.dropout_rate = 0.0
+        return shard_train_state(state, layouts[layout])
+
+    batch, starts = dist_acoustic_batch(spec)
+    tensors = to_tensors(batch, dev)
+    t0 = time.perf_counter()
+    src = fresh("1xn", SEED)
+    step = make_train_step(True, True, mesh=layouts["1xn"])
+    saved, save_s = [], []
+    with matmul_precision("float32"):
+        for _ in range(2):
+            step(src, tensors, window_starts=starts.to(dev))
+            t1 = time.perf_counter()
+            sharded_ckpt.save_sharded_checkpoint(directory, src, src.step)
+            save_s.append(time.perf_counter() - t1)
+            saved.append(_state_snapshot(src))
+    bad = {}
+    for layout in layouts:
+        t1 = time.perf_counter()
+        got = _state_snapshot(sharded_ckpt.restore_sharded_checkpoint(directory,
+                                                                      fresh(layout, SEED + 5)))
+        bad[f"restore onto {layout} ({time.perf_counter() - t1:.2f} s)"] = \
+            _same_snapshots(got, saved[1])
+    swa = _state_snapshot(sharded_ckpt.swa_average(directory, fresh("nx1", SEED + 6), n=2))
+    params = {f"{net}.{k}" for net, m in (("model", src.model), ("disc", src.disc))
+              for k, _ in m.named_parameters()}
+    want = {k: (saved[0][k] / 2 + v / 2 if k in params else v) for k, v in saved[1].items()}
+    bad["swa of 2"] = _same_snapshots(swa, want)
+    return dict(bad=bad, steps=sharded_ckpt.list_sharded_steps(directory), save_s=save_s,
+                tensors=len(saved[1]), seconds=time.perf_counter() - t0)
+
+
+def _live_biases(module, seed):
+    """Every bias N(0, 0.1): a wrong edge halo then shows in the wave."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for k, p in module.named_parameters():
+            if k.endswith("bias"):
+                p.copy_(0.1 * torch.randn(p.shape, generator=g))
+    return module
+
+
+def dist_longform(spec, dev, mesh, rank):
+    """HiFiGAN (K2) and BigVGAN (K5) at full width with live biases on a
+    ragged mel of ``longform_frames`` frames, time-sharded over the ranks,
+    against the unsharded synthesis (rank 0); each rank's launches for its
+    chunk and for the tail's patch."""
+    out = {}
+    mel = torch.from_numpy(np.random.RandomState(SEED + 148).randn(
+        spec["longform_frames"], 80).astype(np.float32) - 4.0).to(dev)
+    torch.manual_seed(SEED + 149)
+    big = BigVGAN(**spec["vocoder"])
+    with torch.no_grad():
+        for k, p in big.named_parameters():
+            if k.endswith(("alpha", "beta")):
+                p.copy_(0.3 * torch.randn_like(p))
+    for name, voc, kernel in (("hifigan", HiFiGANGenerator(**spec["vocoder"]), "k2"),
+                              ("bigvgan", big, "k5")):
+        voc = _live_biases(voc, SEED + 150).to(dev).eval()
+        reset_counts()
+        t0 = time.perf_counter()
+        wave = synthesize_longform(voc, mel, mesh)   # returns on the host: the card is done
+        sec = time.perf_counter() - t0
+        counts = {k: w.launches for k, w in WRAPPERS.items()}
+        row = dict(seconds=sec, launches=counts, samples=len(wave))
+        if rank == 0:
+            reset_counts()
+            with torch.no_grad():
+                want = voc(mel[None])[0, :, 0].cpu().numpy()
+            row["unsharded_launches"] = {k: w.launches for k, w in WRAPPERS.items()}
+            row["err"] = float(np.abs(wave - want).max())
+        out[name] = row
+        del voc
+    return out
+
+
+def dist_interface(spec, dev, mesh, rank):
+    """``ToucanTTSInterface(mesh=..., longform_frames=...)`` at full width on
+    LONG_TEXT with durations and glow noise given: every rank's wave, K1 in
+    the acoustic part; rank 0 holds it against the interface without a mesh
+    whose mel is vocoded unsharded to its true end (the long path's
+    semantics; the plain call's bucket, zeroed past the mel, is printed)."""
+    torch.manual_seed(SEED)
+    tts_sd = ToucanTTS(ToucanTTSConfig(**spec["config"])).state_dict()
+    voc_sd = _live_biases(HiFiGANGenerator(**spec["vocoder"]), SEED + 151).state_dict()
+    kw = dict(config=ToucanTTSConfig(**spec["config"]),
+              vocoder=HiFiGANGenerator(**spec["vocoder"]), device=dev, seed=SEED)
+    iface = ToucanTTSInterface(tts_sd, voc_sd, mesh=mesh,
+                               longform_frames=spec["iface_longform"], **kw)
+    n = len(iface.text2phone.string_to_features(LONG_TEXT))
+    durations = np.full(n, spec["iface_frames_per_phone"])
+    noise = (0.8 * np.random.RandomState(SEED + 152).randn(n * spec["iface_frames_per_phone"]
+                                                           + 64, 80)).astype(np.float32)
+    reset_counts()
+    t0 = time.perf_counter()
+    wave, dur, _, _ = iface(LONG_TEXT, durations=durations, glow_noise=noise,
+                            return_duration_pitch_energy=True)
+    out = dict(seconds=time.perf_counter() - t0, samples=len(wave),
+               launches={k: w.launches for k, w in WRAPPERS.items()})
+    if rank == 0:
+        plain = ToucanTTSInterface(tts_sd, voc_sd, **kw)
+        (p_wave, after, p_dur, _, _, lens), _ = plain._dispatch_call(
+            LONG_TEXT, durations=durations, glow_noise=noise)
+        mel_len = int(lens[0])
+        with torch.no_grad(), matmul_precision("float32"):
+            want = plain.vocoder(after[:, :mel_len])[0, :, 0].cpu().numpy()
+        out["err"] = float(np.abs(wave - want).max())
+        out["bucket_err"] = float(np.abs(wave - p_wave[0, :mel_len * 384].cpu().numpy()).max())
+        out["durations_equal"] = bool(np.array_equal(dur, p_dur[0, :n].cpu().numpy()))
+        out["frames"] = mel_len
+    return out
+
+
+def dist_rank(rank, world, spec):
+    """One rank of the distribution phases; returns what rank 0 compared
+    (small values only) and this rank's launches."""
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(max(1, torch.get_num_threads() // max(world, 1)))
+    launches = dict.fromkeys(WRAPPERS, 0)
+    out = {}
+    t0 = time.perf_counter()
+    meshes = ({f"{world}x1": make_mesh(world, 1, device_type=dev.type),
+               f"1x{world}": make_mesh(1, world, device_type=dev.type)} if world > 1
+              else {"1x1": make_mesh(1, 1, device_type=dev.type)})
+    # the gathers' two routes, on the card: the all-reduce over a zeroed slot
+    # buffer (every backend) and, on NCCL, all_gather_into_tensor
+    group = next(iter(meshes.values())).get_group("data")
+    x = torch.arange(12.0, device=dev).reshape(3, 4) + 100 * rank
+    routes = [all_gather(x, group, native=False)]
+    if torch.distributed.get_backend(group) == "nccl":
+        routes.append(all_gather(x, group, native=True))
+    want = torch.stack([torch.arange(12.0, device=dev).reshape(3, 4) + 100 * r
+                        for r in range(group.size())])
+    out["gather_routes"] = [bool(torch.equal(r, want)) for r in routes]
+    f64, f32 = torch.float64, torch.float32
+    fns = {"acoustic": (dist_acoustic_step, ZERO_GRADIENTS, (f64, f32) if world > 1 else (f64,))}
+    if world > 1:
+        fns.update(vocoder=(dist_vocoder_step, (), (f64,)),
+                   aligner=(dist_aligner_step, (), (f64,)))
+    out["train"] = dist_step_checks(spec, dev, meshes, rank, fns)
+    out["train_seconds"] = time.perf_counter() - t0
+    if world > 1:
+        t0 = time.perf_counter()
+        out["ckpt"] = dist_checkpoints(spec, dev, world, spec["ckpt_dir"])
+        out["ckpt_seconds"] = time.perf_counter() - t0
+        data_mesh = meshes[f"{world}x1"]
+        t0 = time.perf_counter()
+        out["longform"] = dist_longform(spec, dev, data_mesh, rank)
+        for row in out["longform"].values():
+            for k, c in row["launches"].items():
+                launches[k] += c
+        out["interface"] = dist_interface(spec, dev, data_mesh, rank)
+        for k, c in out["interface"]["launches"].items():
+            launches[k] += c
+        out["longform_seconds"] = time.perf_counter() - t0
+    out["launches"] = launches
+    return out
+
+
+def phase_dist_train(card):
+    """The train steps on meshes against one process: ``run_ranks`` of one
+    NCCL rank (mesh 1x1), then of two gloo ranks sharing the card, whose
+    checks of the later phases it also returns."""
+    from toucan_tpu_torch.dist.launch import run_ranks
+
+    spec = dict(DIST, ckpt_dir=tempfile.mkdtemp(prefix="toucan_ckpt_"))
+    results = {}
+    for backend, world in ((("nccl" if spec["nccl"] else "gloo"), 1), ("gloo", 2)):
+        t0 = time.perf_counter()
+        res = run_ranks(dist_rank, world, args=(spec,), backend=backend,
+                        timeout_s=spec["timeout_s"])
+        results[world] = res
+        routes = res[0]["gather_routes"]
+        log("dist_train", f"{backend}, {world} rank(s): all_gather as an all-reduce"
+                          + (" and NCCL's all_gather_into_tensor" if len(routes) > 1 else "")
+                          + f" on the card, each equal to the ranks' tensors: {routes}")
+        if not all(routes):
+            raise AssertionError(f"dist_train: a gather route is wrong on {backend}")
+        for check, row in res[0]["train"].items():
+            f32 = (f"float32, not held: {row['err32']:.3e} at {row['at32']}; "
+                   if "err32" in row else "")
+            log("dist_train", f"{backend}, {world} rank(s), {check}: float64 max err "
+                              f"{row['err64']:.3e} of its tensor's peak at {row['at64']} "
+                              f"(tolerance {TOL_DIST64}); the gradients 0 in exact "
+                              f"arithmetic within {row['zero64']:.3e} of the largest "
+                              f"(tolerance {TOL_ZERO_GRAD}); {f32}{row['seconds']:.1f} s on "
+                              f"the mesh, {row['single_seconds']:.1f} s in one process "
+                              f"(state, step and gathering, host clock)")
+            if not (row["err64"] <= TOL_DIST64 and row["zero64"] <= TOL_ZERO_GRAD):
+                raise AssertionError(f"dist_train: {check} on {world} rank(s) disagrees with "
+                                     f"one process on the global batch")
+        log("dist_train", f"{backend}, {world} rank(s): wall time "
+                          f"{time.perf_counter() - t0:.1f} s (each rank started by spawn; "
+                          f"the steps {res[0]['train_seconds']:.1f} s of rank 0; {card})")
+    shutil.rmtree(spec["ckpt_dir"], ignore_errors=True)
+    return results[2]
+
+
+def phase_sharded_ckpt(ranks, card):
+    ck = ranks[0]["ckpt"]
+    saves = ", ".join(f"{s:.2f}" for s in ck["save_s"])
+    log("sharded_ckpt", f"{ck['tensors']} tensors a state, saved by two ranks on the (1, 2) "
+                        f"layout at steps {ck['steps']} ({saves} s a save); "
+        + "; ".join(f"{k}: {len(v)} unequal" for k, v in ck["bad"].items())
+        + f"; wall time {ck['seconds']:.1f} s ({card})")
+    for what, bad in ck["bad"].items():
+        if bad:
+            raise AssertionError(f"sharded_ckpt: {what}: unequal {bad[:5]}")
+    if ck["steps"] != [1, 2]:
+        raise AssertionError(f"sharded_ckpt: steps on disk {ck['steps']}")
+
+
+def phase_longform(ranks, launches, card):
+    """The long-form and interface checks the two ranks ran: each rank's
+    launches per chunk (one synthesis of its chunk plus one of the tail's
+    window when T was padded) and over the phase, rank 0's errors."""
+    count = DIST["count"]
+    per_call = {"hifigan": dict(k2=4), "bigvgan": dict(k5=K5_LAUNCHES)}
+    for name, row in ranks[0]["longform"].items():
+        log("longform", f"{name}: {DIST['longform_frames']} frames over 2 ranks sharing the card: "
+                        f"max_abs_err against the unsharded synthesis {row['err']:.3e} "
+                        f"(tolerance {TOL_LONGFORM}); {row['samples']} samples; rank 0 "
+                        f"{1e3 * row['seconds']:.1f} ms (host clock, {card})")
+        if not row["err"] <= TOL_LONGFORM:
+            raise AssertionError(f"longform: {name} sharded disagrees with unsharded")
+        padded = DIST["longform_frames"] % 2 != 0
+        want = {k: v * (2 if padded else 1) for k, v in per_call[name].items()}
+        for r, rank in enumerate(ranks):
+            got = {k: c for k, c in rank["longform"][name]["launches"].items() if c}
+            log("longform", f"{name}: rank {r} launches {got} (a chunk and "
+                            f"{'the tail window' if padded else 'no tail'}: expected {want})")
+            if count and got != want:
+                raise AssertionError(f"longform: {name} rank {r} launched {got}, not {want}")
+        if count and {k: c for k, c in row["unsharded_launches"].items() if c} != per_call[name]:
+            raise AssertionError(f"longform: the unsharded {name} launched "
+                                 f"{row['unsharded_launches']}")
+    it = ranks[0]["interface"]
+    log("longform", f"interface(mesh=..., longform_frames={DIST['iface_longform']}): "
+                    f"{it['frames']} frames, durations equal to the plain interface's: "
+                    f"{it['durations_equal']}; max_abs_err against its mel vocoded whole "
+                    f"{it['err']:.3e} (tolerance {TOL_LONGFORM}); against the plain call's "
+                    f"bucket (zeroed frames past the mel), not held: {it['bucket_err']:.3e}; "
+                    f"rank 0 {it['seconds']:.2f} s ({card})")
+    if not (it["err"] <= TOL_LONGFORM and it["durations_equal"]):
+        raise AssertionError("longform: the interface's mesh path disagrees")
+    for r, rank in enumerate(ranks):
+        got = {k: c for k, c in rank["interface"]["launches"].items() if c}
+        log("longform", f"interface: rank {r} launches {got}")
+        if count and not (got.get("k1") == 12 and got.get("k2") in (4, 8)):
+            raise AssertionError(f"longform: the interface's mesh path launched {got}")
+    for rank in ranks:
+        for k, c in rank["launches"].items():
+            launches[k] += c
+
+
+def phase_pipelined(dev, launches, card):
+    """``PipelinedSynthesizer`` at full width on ``[dev]``: a stream of
+    ``pipe_batches`` batches, each wave against its standalone dispatch,
+    K1 12 and K2 4 a batch; then ``bench_pipelined_vs_sequential``."""
+    t_phase = time.perf_counter()
+    torch.manual_seed(SEED)
+    model = ToucanTTS(ToucanTTSConfig(**DIST["config"]))
+    vocoder = HiFiGANGenerator(**DIST["vocoder"])
+    pipe = PipelinedSynthesizer(model, None, vocoder, None, DIST["pipe_frames"], devices=[dev])
+    g = torch.Generator().manual_seed(SEED + 153)
+    b, t, f = DIST["pipe_batch"], DIST["pipe_phones"], DIST["pipe_frames"]
+    batches = [((torch.rand(b, t, 62, generator=g) > 0.5).float(),
+                torch.tensor([t, t - 1 - (5 * i) % (t // 2)][:b]), torch.randn(b, 64, generator=g),
+                torch.zeros(b, 1, dtype=torch.int64), 0.8 * torch.randn(b, f, 80, generator=g),
+                torch.ones(4)) for i in range(DIST["pipe_batches"])]
+    reset_counts()
+    t0 = time.perf_counter()
+    results = list(pipe.synthesize_stream(batches))
+    stream_s = time.perf_counter() - t0
+    got = {k: w.launches for k, w in WRAPPERS.items()}
+    want = {k: 0 for k in WRAPPERS}
+    want.update(k1=12 * len(batches), k2=4 * len(batches))
+    for k, c in got.items():
+        launches[k] += c
+    errs = []
+    for (wave, lens), batch in zip(results, batches):
+        mel, want_lens = pipe.acoustic_fn(*[x.to(dev) for x in batch])
+        alone = pipe.vocode_fn(mel).cpu().numpy()
+        if not np.array_equal(lens, want_lens.cpu().numpy()):
+            raise AssertionError("pipelined: a stream's lengths differ from standalone dispatch")
+        errs.append(float(np.abs(wave - alone).max()))
+    log("pipelined", f"{len(batches)} batches of {b} x {t} phones, {f} frames on {[str(dev)]} "
+                     f"(two_stage={pipe.two_stage}: one card, so both stages share it): "
+                     f"stream {stream_s:.2f} s (host clock), launches {got} (expected "
+                     f"{ {k: v for k, v in want.items() if v} }); max_abs_err against "
+                     f"standalone dispatch {max(errs):.3e} (tolerance {TOL_PIPE}); {card}")
+    if DIST["count"] and got != want:
+        raise AssertionError(f"pipelined: expected launches {want}, got {got}")
+    if not max(errs) <= TOL_PIPE:
+        raise AssertionError("pipelined: a streamed wave differs from its standalone dispatch")
+    if DIST["count"]:
+        bench = bench_pipelined_vs_sequential(dev)
+        log("pipelined", "bench_pipelined_vs_sequential (CUDA events; B = 8, 128 phones, 1024 "
+                         "frames, 8 batches): " + ", ".join(
+                             f"{k}={v:.2f}" if isinstance(v, float) else f"{k}={v}"
+                             for k, v in bench.items())
+            + f"; two_stage False: one card, so the stream only hides the host's work "
+              f"({card})")
+    log("pipelined", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+def phase_scaling(dev, card):
+    """``scaling_bench.measure(1, 1)`` at full width on the card."""
+    t0 = time.perf_counter()
+    res = measure(1, 1, device=dev, config=ToucanTTSConfig(**DIST["config"]), **DIST["scaling"])
+    clock = "CUDA events" if dev.type == "cuda" else "host clock"
+    log("scaling", f"measure(1, 1): mesh {res['mesh']}, batch {res['batch_size']}, step "
+                   f"{1e3 * res['step_seconds']:.2f} ms ({clock}), "
+                   f"{res['utterances_per_second']:.2f} utterances/s, "
+                   f"{res['mel_frames_per_second']:.1f} mel frames/s per device; card "
+                   f"{res['card']}; wall time {time.perf_counter() - t0:.1f} s ({card})")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -3076,6 +3655,11 @@ def main():
     phase_aligner_train(dev, smi)
     phase_embedding_train(dev, smi)
     phase_wgan_qc(dev, smi)
+    ranks = phase_dist_train(smi)
+    phase_sharded_ckpt(ranks, smi)
+    phase_longform(ranks, launches, smi)
+    phase_pipelined(dev, launches, smi)
+    phase_scaling(dev, smi)
     log("main", f"launches over the main-path phases: {launches}")
 
     kernels = [

@@ -3,9 +3,12 @@
 
 Runs ``phase_clone``, ``phase_controllable``, ``phase_main_bf16`` (HiFiGAN
 and BigVGAN), ``phase_precision``, ``phase_fastspeech2``,
-``phase_stochastic``, ``phase_train`` and the phases of the rest of
+``phase_stochastic``, ``phase_train``, the phases of the rest of
 training (``phase_vocoder_train``, ``phase_bigvgan_train``,
-``phase_aligner_train``, ``phase_embedding_train``, ``phase_wgan_qc``) on
+``phase_aligner_train``, ``phase_embedding_train``, ``phase_wgan_qc``) and
+of distribution (``dist``: ``phase_dist_train``, ``phase_sharded_ckpt``,
+``phase_longform``, ``phase_pipelined``, ``phase_scaling``, their ranks
+gloo CPU processes, the NCCL one too) on
 tiny models (the tiny ToucanTTS of the port's tests, also as the
 stochastic model and the trainer's, 64-channel vocoders, the joint critic
 at ``channel_scale=0.05``, an aligner of conv 64 and BiLSTM 32 with a
@@ -22,6 +25,7 @@ time it prints is the CPU's, not the card's.
 With names (``vocoder_train``, ``wgan_qc``, ...) only those phases run.
 """
 
+import dataclasses
 import os
 import sys
 import time
@@ -49,6 +53,31 @@ TINY = ToucanTTSConfig(adim=32, aheads=2, enc_layers=1, enc_units=64, dec_layers
                        duration_layers=1, pitch_layers=1, energy_layers=1, duration_chans=16,
                        pitch_chans=16, energy_chans=16, glow_blocks=2, glow_hidden=16,
                        utt_embed_dim=64, lang_embs=100)
+
+
+def dist_phases(cpu_dev, launches):
+    """The distribution phases on tiny nets and short inputs, the ranks as
+    gloo CPU processes (the NCCL rank too), launches not counted."""
+    chip_smoke.HiFiGANGenerator = HiFiGANGenerator   # the phases pass their widths
+    chip_smoke.DIST = dict(
+        chip_smoke.DIST, device="cpu", nccl=False, count=False, timeout_s=600,
+        config=dataclasses.asdict(TINY), critic_scale=0.05,
+        vocoder=dict(channels=32, resblock_kernel_sizes=(3,), resblock_dilations=(1, 3)),
+        aligner=dict(conv_dim=64, lstm_dim=32), tinytts=dict(lstm_dim=32), train_batch=4,
+        voc_frames=8, aligner_frames=(40, 60), aligner_tokens=(8, 12), longform_frames=259,
+        iface_longform=256, iface_frames_per_phone=3, pipe_phones=16, pipe_frames=64,
+        scaling=dict(batch_per_device=2, tmax=16, lmax=64, steps=2))
+    for name, phase in (("dist_train", lambda: chip_smoke.phase_dist_train("CPU")),
+                        ("sharded_ckpt", lambda: chip_smoke.phase_sharded_ckpt(ranks, "CPU")),
+                        ("longform", lambda: chip_smoke.phase_longform(ranks, launches, "CPU")),
+                        ("pipelined", lambda: chip_smoke.phase_pipelined(cpu_dev, launches,
+                                                                         "CPU")),
+                        ("scaling", lambda: chip_smoke.phase_scaling(cpu_dev, "CPU"))):
+        t0 = time.perf_counter()
+        out = phase()
+        if name == "dist_train":
+            ranks = out
+        print(f"rehearsal: phase_{name} passed in {time.perf_counter() - t0:.1f} s (CPU)")
 
 
 def main():
@@ -117,7 +146,8 @@ def main():
                         ("aligner_train", lambda: chip_smoke.phase_aligner_train(cpu_dev, "CPU")),
                         ("embedding_train", lambda: chip_smoke.phase_embedding_train(
                             cpu_dev, "CPU")),
-                        ("wgan_qc", lambda: chip_smoke.phase_wgan_qc(cpu_dev, "CPU"))):
+                        ("wgan_qc", lambda: chip_smoke.phase_wgan_qc(cpu_dev, "CPU")),
+                        ("dist", lambda: dist_phases(cpu_dev, launches))):
         if sys.argv[1:] and name.split()[0] not in sys.argv[1:]:
             continue
         t0 = time.perf_counter()

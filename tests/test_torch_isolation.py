@@ -1,9 +1,13 @@
 """The port stands alone: no JAX, nothing of ``toucan_tpu``.
 
 A fresh interpreter imports every module of ``toucan_tpu_torch`` and must
-end with neither JAX, flax nor the JAX package loaded; a source scan finds
-no import of them in the package or in ``chip_smoke.py``.  The frontend is
-a verbatim copy and must give the JAX package's feature arrays exactly.
+end with neither JAX, flax, optax, orbax nor the JAX package loaded; so
+must one that imports only the distribution slice's modules
+(``dist/``, ``infer/pipelined.py``, ``train/sharded_checkpointing.py``) or
+the worker script that the multi-rank tests start
+(``tests/torch_dist_worker.py``).  A source scan finds no import of them in
+the package, in ``chip_smoke.py`` or in that worker.  The frontend is a
+verbatim copy and must give the JAX package's feature arrays exactly.
 """
 
 import pathlib
@@ -26,8 +30,17 @@ names = [m.name for m in pkgutil.walk_packages(toucan_tpu_torch.__path__, "touca
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "toucan_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "toucan_tpu"))
 print(len(names), bad)
+"""
+
+_IMPORT_ONE = """
+import importlib, sys
+sys.path.insert(0, "tests")
+for name in sys.argv[1:]:
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax", "toucan_tpu")))
 """
 
 
@@ -38,11 +51,28 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out[1:] == ["[]"], out
 
 
-_FORBIDDEN = re.compile(r"\btoucan_tpu\.|^\s*(import|from)\s+(jax|jaxlib|flax)\b", re.M)
+DISTRIBUTION = ["toucan_tpu_torch.dist", "toucan_tpu_torch.dist.mesh",
+                "toucan_tpu_torch.dist.longform", "toucan_tpu_torch.dist.scaling_bench",
+                "toucan_tpu_torch.dist.tensor_parallel", "toucan_tpu_torch.dist.launch",
+                "toucan_tpu_torch.infer.pipelined", "toucan_tpu_torch.train.sharded_checkpointing",
+                "torch_dist_worker"]
+
+
+def test_distribution_modules_and_workers_import_no_jax():
+    """One fresh interpreter imports the distribution modules and the
+    multi-rank tests' worker script, and nothing else."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, *DISTRIBUTION], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120, check=True).stdout
+    assert out.split() == ["[]"], out
+
+
+_FORBIDDEN = re.compile(
+    r"\btoucan_tpu\.|^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax)\b", re.M)
 
 
 def test_sources_name_no_jax_or_jax_package():
-    files = sorted((ROOT / "toucan_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted((ROOT / "toucan_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "tests" / "torch_dist_worker.py"]
     hits = [f"{f.relative_to(ROOT)}: {m.group(0).strip()}" for f in files
             for m in _FORBIDDEN.finditer(f.read_text())]
     assert hits == []

@@ -1,7 +1,7 @@
 """Host-to-device input pipeline for training.
 
-Counterpart of ``toucan_tpu/data/prefetch.py`` without its mesh branch.
-The reference keeps its card fed with DataLoader workers
+Counterpart of ``toucan_tpu/data/prefetch.py``.  The reference keeps its
+card fed with DataLoader workers
 (``toucantts_train_loop.py:68-76``); here one host thread takes the next
 host batch (a dict of numpy arrays, padded by ``data/batching.py``), puts
 it in pinned memory and copies it to the card with ``non_blocking`` on a
@@ -9,6 +9,11 @@ side stream, up to ``depth`` batches ahead of the step that consumes them.
 The consumer's stream waits for the copy's event before it reads a batch.
 An exception of the source or of the copy re-raises at the consumer's
 ``next()``.  On the CPU the batches are only wrapped as tensors.
+
+With a ``mesh`` (JAX's branch, ``make_global_batch``), each rank of the
+mesh runs its own prefetcher over a source of global batches, and keeps
+its data rank's rows of each.  (``train_loop(mesh=...)`` samples each
+rank's share itself and passes no mesh.)
 """
 
 from __future__ import annotations
@@ -39,8 +44,11 @@ def to_tensors(batch, device, non_blocking: bool = False):
 class DevicePrefetcher:
     """Iterate device-resident batches, prepared up to ``depth`` ahead."""
 
-    def __init__(self, source, device, depth: int = 2):
+    def __init__(self, source, device, depth: int = 2, mesh=None):
         self.device = torch.device(device)
+        if mesh is not None:
+            from toucan_tpu_torch.dist.mesh import local_rows
+            source = (local_rows(b, mesh) for b in source)
         self._queue: queue.Queue = queue.Queue(maxsize=max(1, depth))
         self._stop = threading.Event()
         self._stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None

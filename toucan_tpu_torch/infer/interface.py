@@ -82,7 +82,7 @@ class ToucanTTSInterface:
                  vocoder: Union[str, nn.Module] = "hifigan", default_embedding=None,
                  language: str = "en", use_g2p: bool = True, seed: int = 0, device=None,
                  gst_state_dict=None, dtype: Optional[torch.dtype] = None,
-                 matmul_precision: str = "float32"):
+                 matmul_precision: str = "float32", mesh=None, longform_frames: int = 1024):
         """``vocoder`` is "hifigan" (``HiFiGANGenerator()``), "bigvgan"
         (``BigVGAN()``) or a vocoder module of the checkpoint's widths; the
         state dicts are loaded into the models.  ``gst_state_dict``: the
@@ -94,7 +94,16 @@ class ToucanTTSInterface:
         port's default, unlike JAX's "default": f32 is the port's contract,
         which its card-against-CPU checks rest on) or "default" (TF32 in
         cuDNN and cuBLAS); the kernels keep their own arithmetic under
-        either."""
+        either.
+
+        ``mesh``: a ``dist.make_mesh`` mesh with a 'data' dim, every rank
+        of which builds the interface alike and makes the same calls.  A
+        call whose frame budget reaches ``longform_frames`` then runs the
+        acoustic model on every rank and vocodes the mel time-sharded over
+        'data' (``dist/longform.py``'s halo exchange), and returns the whole
+        wave on every rank, as the JAX interface's ``mesh`` does.  That path
+        runs eagerly, outside the per-bucket CUDA graphs: its exchange is a
+        collective, which a graph cannot hold under gloo."""
         self.device = resolve_device(device)
         self.config = config or ToucanTTSConfig()
         if dtype is not None and self.config.dtype != dtype:
@@ -125,6 +134,8 @@ class ToucanTTSInterface:
         self._graph_pool = None      # the memory pool all buckets' graphs capture into
         self._eager = False          # run every call eagerly, no bucket (comparisons)
         self._matmul_precision = check_policy(matmul_precision)
+        self.mesh = mesh
+        self.longform_frames = longform_frames
         if default_embedding is None and self.config.utt_embed_dim is not None:
             default_embedding = np.zeros(self.config.utt_embed_dim, np.float32)
         self.default_utterance_embedding = (
@@ -277,17 +288,37 @@ class ToucanTTSInterface:
         Returns (wave (B, 384*max_frames), after, durations, pitch, energy,
         mel_lengths); the mel handed to the vocoder and the one returned are
         f32 whatever the model's dtype, as in JAX (``interface.py:239``)."""
+        after, dur, pit, ene, lens = self._acoustic(
+            text, text_lengths, max_frames, utt, lang, noise, knobs, durations, pitch, energy)
+        mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
+        mel = torch.where(mask, after, torch.zeros((), device=after.device))
+        wave = self._vocoder_call(mel)[..., 0]
+        return wave, after, dur, pit, ene, lens
+
+    def _acoustic(self, text, text_lengths, max_frames: int, utt, lang, noise, knobs,
+                  durations=None, pitch=None, energy=None):
+        """Text -> (after (f32), durations, pitch, energy, mel_lengths)."""
         _, after, dur, pit, ene, lens = self.model.infer(
             text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
             gold_durations=durations, gold_pitch=pitch, gold_energy=energy,
             duration_scaling_factor=knobs[0], pitch_variance_scale=knobs[1],
             energy_variance_scale=knobs[2], pause_duration_scaling_factor=knobs[3],
             glow_noise=noise)
-        after = after.float()
-        mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
-        mel = torch.where(mask, after, torch.zeros((), device=after.device))
-        wave = self._vocoder_call(mel)[..., 0]
-        return wave, after, dur, pit, ene, lens
+        return after.float(), dur, pit, ene, lens
+
+    @torch.inference_mode()
+    def _longform(self, max_frames: int, noise=None, **inputs):
+        """The acoustic model, then its mel vocoded time-sharded over the
+        mesh (JAX ``interface.py:459-473``): eager, every rank alike.
+        Returns ``_e2e``'s outputs, the wave (1, 384 * mel_length) only."""
+        from toucan_tpu_torch.dist.longform import synthesize_longform
+
+        if noise is None:
+            noise = self._noise(1, max_frames)
+        after, dur, pit, ene, lens = self._acoustic(max_frames=max_frames, noise=noise,
+                                                    **inputs)
+        wave = synthesize_longform(self._vocoder_call, after[0, :int(lens[0])], self.mesh)
+        return torch.from_numpy(wave)[None], after, dur, pit, ene, lens
 
     def _e2e_bucket(self, max_frames: int, inputs: dict) -> Bucket:
         """The bucket of these inputs (device tensors or None, named as
@@ -396,11 +427,14 @@ class ToucanTTSInterface:
             noise = self._tensor(z)
         knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
                  pause_duration_scaling_factor)
-        outs = self._run_e2e(max_frames, noise, text=self._tensor(text_arr),
-                             text_lengths=self._tensor([n], torch.int64), utt=self._utt(1),
-                             lang=self._lang([self.lang_id]), knobs=self._tensor(knobs),
-                             durations=pad_override(durations, torch.int32),
-                             pitch=pad_override(pitch), energy=pad_override(energy))
+        run = self._run_e2e
+        if self.mesh is not None and max_frames >= self.longform_frames:
+            run = self._longform
+        outs = run(max_frames, noise, text=self._tensor(text_arr),
+                   text_lengths=self._tensor([n], torch.int64), utt=self._utt(1),
+                   lang=self._lang([self.lang_id]), knobs=self._tensor(knobs),
+                   durations=pad_override(durations, torch.int32),
+                   pitch=pad_override(pitch), energy=pad_override(energy))
         return outs, n
 
     @_under_policy

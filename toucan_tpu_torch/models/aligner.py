@@ -11,8 +11,9 @@ sequences, which is what JAX's masks and its reverse-within-length flip
 compute.
 
 ``train=True`` normalizes with the batch's statistics and updates the
-running ones as flax does (``0.9 * old + 0.1 * batch``, with the biased
-batch variance; ``nn.BatchNorm1d`` would take the unbiased one), and
+running ones as flax does (``nn/convolution.py::train_batch_norm``:
+``0.9 * old + 0.1 * batch``, with the biased batch variance; on a mesh the
+global batch's), and
 dropout is on only where ``deterministic=False``, so the cloner's fine-tune
 (train, deterministic) is JAX's.  The aligner runs on library kernels
 (cuDNN convs and LSTM); no custom kernel is on its path, so it can train.
@@ -29,8 +30,8 @@ from torch import nn
 from torch.nn.utils.rnn import pack_padded_sequence, pad_packed_sequence
 
 from toucan_tpu_torch.frontend.inventory import CTC_BLANK_ID, NUM_CTC_SYMBOLS
+from toucan_tpu_torch.nn.convolution import train_batch_norm
 
-BN_MOMENTUM = 0.9   # flax's: running = 0.9 * running + 0.1 * batch
 BN_EPS = 1e-5
 
 
@@ -45,15 +46,10 @@ class BatchNormConv(nn.Module):
         """(B, C, T) -> (B, channels, T)."""
         x = F.relu(self.conv(x))
         bn = self.bnorm
-        if not train:
-            return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
-                                training=False, eps=BN_EPS)
-        with torch.no_grad():
-            mean = x.mean(dim=(0, 2))
-            var = x.var(dim=(0, 2), unbiased=False)
-            bn.running_mean.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * mean)
-            bn.running_var.mul_(BN_MOMENTUM).add_((1 - BN_MOMENTUM) * var)
-        return F.batch_norm(x, None, None, bn.weight, bn.bias, training=True, eps=BN_EPS)
+        if train:
+            return train_batch_norm(bn, x)
+        return F.batch_norm(x, bn.running_mean, bn.running_var, bn.weight, bn.bias,
+                            training=False, eps=BN_EPS)
 
 
 class Aligner(nn.Module):

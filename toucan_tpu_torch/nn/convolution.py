@@ -8,13 +8,39 @@ statistics, with ``train=True`` by the batch's, whose running averages it
 updates as flax's ``BatchNorm(momentum=0.9)`` does (``train_batch_norm``).
 """
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+# sums a tensor over the ranks that share a batch, with its gradient; set
+# by ``dist/tensor_parallel.py::MeshStep.batch_statistics``
+_stats_reduce = None
+
+
+@contextlib.contextmanager
+def batch_statistics_reduced_by(reduce):
+    """Within, training-mode BatchNorm takes the moments of the batch that
+    ``reduce`` sums its sums over (None: this rank's batch alone)."""
+    global _stats_reduce
+    before, _stats_reduce = _stats_reduce, reduce
+    try:
+        yield
+    finally:
+        _stats_reduce = before
+
+
+def stats_reduce():
+    """The reduction ``batch_statistics_reduced_by`` set, or None."""
+    return _stats_reduce
+
 
 def conv_btc(conv: nn.Conv1d, x):
-    """Apply a Conv1d to a (B, T, C) tensor."""
+    """Apply a Conv1d to a (B, T, C) tensor (a tensor-parallel conv by its
+    own ``forward_btc``)."""
+    if hasattr(conv, "forward_btc"):
+        return conv.forward_btc(x)
     if conv.kernel_size[0] == 1 and conv.groups == 1:
         return F.linear(x, conv.weight[..., 0], conv.bias)
     return conv(x.transpose(1, 2)).transpose(1, 2)
@@ -37,8 +63,14 @@ def train_batch_norm(norm: nn.modules.batchnorm._BatchNorm, x, update: bool = Tr
     momentum = FLAX_MOMENTUM
     dims = (0,) + tuple(range(2, x.dim()))
     shape = (-1,) + (1,) * (x.dim() - 2)
-    mean = x.mean(dim=dims)
-    var = (x - mean.view(shape)).square().mean(dim=dims)
+    reduce = _stats_reduce
+    if reduce is None:
+        mean = x.mean(dim=dims)
+        var = (x - mean.view(shape)).square().mean(dim=dims)
+    else:  # the global batch's moments, from every rank's sums
+        n = reduce(x.new_tensor(x.numel() // x.shape[1]))
+        mean = reduce(x.sum(dim=dims)) / n
+        var = reduce((x - mean.view(shape)).square().sum(dim=dims)) / n
     if update:
         with torch.no_grad():
             norm.running_mean.mul_(momentum).add_((1 - momentum) * mean)
@@ -90,5 +122,15 @@ class ConvFeedForward(nn.Module):
     def forward(self, x, deterministic: bool = True):
         h = F.relu(conv_btc(self.w_1, x))
         if not deterministic:
-            h = F.dropout(h, self.dropout_rate)
+            h = dropout(h, self.dropout_rate, getattr(self.w_1, "generator", None))
         return conv_btc(self.w_2, h)
+
+
+def dropout(x, rate: float, generator=None):
+    """``F.dropout`` in training mode, its mask drawn from ``generator``
+    when one is given (a 'model'-sharded region's own stream,
+    ``dist/tensor_parallel.py::seed_dropout``)."""
+    if generator is None or rate == 0.0:
+        return F.dropout(x, rate)
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)

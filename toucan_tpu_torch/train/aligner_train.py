@@ -1,7 +1,6 @@
 """Aligner training: CTC plus the TinyTTS reconstruction.
 
-Counterpart of ``toucan_tpu/train/aligner_train.py`` on one device (its
-``make_sharded_aligner_step`` is not ported); the reference's
+Counterpart of ``toucan_tpu/train/aligner_train.py``; the reference's
 ``autoaligner_train_loop.py:24-148``: the loss is the aligner's CTC plus
 ``min(5, step / 2000)`` x the reconstruction loss of a small decoder
 (``TinyTTS``) that reads the aligner's logits and the L2-normalised speaker
@@ -14,6 +13,7 @@ sequences, which is what JAX's length masks compute.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -89,22 +89,35 @@ def _l2_normalize(x, eps: float = 1e-12):
     return x / torch.sqrt((x * x).sum(-1, keepdim=True)).clamp(min=eps)
 
 
-def make_aligner_train_step(use_reconstruction: bool = True):
+def make_aligner_train_step(use_reconstruction: bool = True, mesh=None):
     """-> step(state, batch, deterministic=False) -> metrics (0-d tensors).
 
     ``batch``: ``mel`` (B, L, 80), ``mel_lengths`` (B,), ``tokens`` (B, S),
     ``token_lengths`` (B,), ``speaker_embeddings`` (B, 192).  Metrics:
-    ``ctc_loss``, ``reconstruction_loss``, ``total_loss``."""
+    ``ctc_loss``, ``reconstruction_loss``, ``total_loss``.  ``mesh``: the
+    step of each rank, on its share of the global batch (see
+    ``make_sharded_aligner_step``)."""
+    mesh_step = None
+    if mesh is not None:
+        from toucan_tpu_torch.dist.tensor_parallel import MeshStep
+        mesh_step = MeshStep(mesh)
 
     def train_step(state: AlignerTrainState, batch, deterministic: bool = False):
-        logits = state.asr(batch["mel"], batch["mel_lengths"], train=True,
-                           deterministic=deterministic)
-        loss = ctc_loss(logits, batch["mel_lengths"], batch["tokens"], batch["token_lengths"])
+        share, stats = 1.0, contextlib.nullcontext()
+        if mesh_step is not None:
+            share = mesh_step.share(batch["mel"].shape[0], batch["mel"].device)
+            stats = mesh_step.batch_statistics()
+        with stats:
+            logits = state.asr(batch["mel"], batch["mel_lengths"], train=True,
+                               deterministic=deterministic)
+        loss = ctc_loss(logits, batch["mel_lengths"], batch["tokens"],
+                        batch["token_lengths"]) * share
         metrics = {"ctc_loss": loss}
         if use_reconstruction:
             spk = _l2_normalize(batch["speaker_embeddings"])
             spk = spk[:, None, :].expand(logits.shape[0], logits.shape[1], spk.shape[-1])
-            recon = state.tts(torch.cat([logits, spk], -1), batch["mel_lengths"], batch["mel"])
+            recon = state.tts(torch.cat([logits, spk], -1), batch["mel_lengths"],
+                              batch["mel"]) * share
             metrics["reconstruction_loss"] = recon
             loss = loss + min(5.0, state.step / 2000.0) * recon
         metrics["total_loss"] = loss
@@ -115,9 +128,30 @@ def make_aligner_train_step(use_reconstruction: bool = True):
         for (_, opt), ps, gs in zip(nets, params, grads):
             for p, g in zip(ps, gs):
                 p.grad = torch.zeros_like(p) if g is None else g
-            clip_by_global_norm([p.grad for p in ps], CLIP)
+            if mesh_step is None:
+                clip_by_global_norm([p.grad for p in ps], CLIP)
+            else:
+                mesh_step.finish(ps, CLIP)
             opt.step()
         state.step += 1
+        if mesh_step is not None:  # the global batch's values
+            metrics = dict(zip(metrics, mesh_step.sum_data(
+                torch.stack([v.detach() for v in metrics.values()]))))
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def make_sharded_aligner_step(state: AlignerTrainState, mesh, **step_kwargs):
+    """The aligner step of every rank of the mesh (JAX
+    ``make_sharded_aligner_step``): pure data parallel, both nets
+    replicated.  As under JAX's ``pjit``, it is the single-device step on
+    the global batch: the BatchNorm moments are the global batch's, the CTC
+    and reconstruction means are weighted by each rank's share, and the
+    gradients are summed over 'data'.  The CTC keeps its ``zero_infinity``
+    rule per utterance.  Returns ``(step, state)``; each rank passes its
+    rows of the global batch."""
+    from toucan_tpu_torch.dist.mesh import shard_aligner_train_state
+
+    return make_aligner_train_step(mesh=mesh, **step_kwargs), \
+        shard_aligner_train_state(state, mesh)

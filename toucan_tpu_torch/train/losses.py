@@ -14,10 +14,22 @@ import torch
 from toucan_tpu_torch.nn.masks import make_non_pad_mask
 
 
+def variance_weight_total(text_lengths, tmax: int):
+    """The sum of the variance weights, which multiplies the pitch and
+    energy losses: the batch size, as float arithmetic gives it."""
+    dur_mask = make_non_pad_mask(text_lengths, tmax)
+    return (dur_mask / dur_mask.sum(dim=1, keepdim=True)).sum()
+
+
 def toucan_tts_loss(before_outs, after_outs, gold_spectrograms, spectrogram_lengths,
                     text_lengths, gold_durations, predicted_durations, predicted_pitch,
-                    predicted_energy, gold_pitch, gold_energy, duration_log_offset: float = 1.0):
-    """Returns (l1_loss, duration_loss, pitch_loss, energy_loss) scalars."""
+                    predicted_energy, gold_pitch, gold_energy, duration_log_offset: float = 1.0,
+                    w_total=None):
+    """Returns (l1_loss, duration_loss, pitch_loss, energy_loss) scalars.
+
+    ``w_total``: the variance weights' sum over the global batch when this
+    batch is a rank's share of it (``variance_weight_total`` summed over the
+    ranks); None takes this batch's."""
     b, lmax, odim = gold_spectrograms.shape
     tmax = gold_durations.shape[1]
     zero = torch.zeros((), dtype=before_outs.dtype, device=before_outs.device)
@@ -42,7 +54,8 @@ def toucan_tts_loss(before_outs, after_outs, gold_spectrograms, spectrogram_leng
     var_mask, var_w = dur_mask[..., None], dur_w[..., None]
     # the second application of the variance weights turns the scalar into
     # scalar * sum(weights), the batch size
-    w_total = torch.where(var_mask, var_w, zero).sum()
+    if w_total is None:
+        w_total = torch.where(var_mask, var_w, zero).sum()
     pitch_loss = torch.where(var_mask, pitch_sq * var_w, zero).sum() * w_total
     energy_loss = torch.where(var_mask, energy_sq * var_w, zero).sum() * w_total
     return l1_loss, duration_loss, pitch_loss, energy_loss

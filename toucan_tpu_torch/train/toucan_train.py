@@ -19,6 +19,7 @@ plain path (no kernel is reached: the kernels have no backward).
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Optional
 
@@ -27,7 +28,7 @@ import torch
 from toucan_tpu_torch.models.discriminator import SpectrogramDiscriminator, random_windows
 from toucan_tpu_torch.models.gst import StyleEmbedding
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
-from toucan_tpu_torch.train.losses import toucan_tts_loss
+from toucan_tpu_torch.train.losses import toucan_tts_loss, variance_weight_total
 from toucan_tpu_torch.train.schedules import WarmupScheduler
 from toucan_tpu_torch.utils.device import resolve_device
 
@@ -90,7 +91,8 @@ def clip_by_global_norm(grads, max_norm: float):
 
 
 def compute_gradients(state: TrainState, batch, run_glow: bool = True,
-                      use_discriminator: bool = False, generator=None, window_starts=None):
+                      use_discriminator: bool = False, generator=None, window_starts=None,
+                      mesh_step=None):
     """The forward and backward of one step (JAX ``loss_fn`` and its
     ``jax.grad``): each parameter's ``.grad`` holds the gradient of the
     guarded total; the BatchNorm running statistics are updated.  Returns
@@ -98,52 +100,88 @@ def compute_gradients(state: TrainState, batch, run_glow: bool = True,
 
     ``batch`` holds the tensors of ``data/batching.py::pad_batch``;
     ``generator`` draws the critic's window starts, or ``window_starts``
-    (B,) gives them."""
+    (B,) gives them.
+
+    ``mesh_step`` (``dist/tensor_parallel.py::MeshStep``): ``batch`` is this
+    rank's share of a global batch, padded to the global batch's shapes.
+    Each loss is then this rank's part of the global batch's loss (a batch
+    mean weighted by the rank's share, the duration loss as it is, the
+    variance losses on the global ``w_total``), BatchNorm takes the global
+    batch's moments, the NaN guard and the metrics see the global values,
+    and ``.grad`` holds this rank's part of the gradient (summed over
+    'data' by the step)."""
     model = state.model
     for p in state.parameters():
         p.grad = None
-    style = state.gst(batch["gold_speech"], batch["speech_lengths"])
-    before, after, d_pred, p_pred, e_pred, glow_loss = model(
-        batch["text"], batch["text_lengths"], batch["gold_speech"], batch["speech_lengths"],
-        batch["gold_durations"], batch["gold_pitch"], batch["gold_energy"],
-        utterance_embedding=style, lang_ids=batch["lang_ids"], run_glow=run_glow,
-        deterministic=False, train=True)
+    gold, lengths = batch["gold_speech"], batch["speech_lengths"]
+    share, w_total, stats = 1.0, None, contextlib.nullcontext()
+    if mesh_step is not None:
+        share = mesh_step.share(gold.shape[0], gold.device)
+        w_total = mesh_step.sum_data(variance_weight_total(batch["text_lengths"],
+                                                           batch["gold_durations"].shape[1]))
+        stats = mesh_step.batch_statistics()
+    style = state.gst(gold, lengths)
+    with stats:
+        before, after, d_pred, p_pred, e_pred, glow_loss = model(
+            batch["text"], batch["text_lengths"], gold, lengths,
+            batch["gold_durations"], batch["gold_pitch"], batch["gold_energy"],
+            utterance_embedding=style, lang_ids=batch["lang_ids"], run_glow=run_glow,
+            deterministic=False, train=True)
     l1, dl, pl, el = toucan_tts_loss(
-        before, after, batch["gold_speech"], batch["speech_lengths"], batch["text_lengths"],
+        before, after, gold, lengths, batch["text_lengths"],
         batch["gold_durations"], d_pred, p_pred, e_pred, batch["gold_pitch"],
-        batch["gold_energy"])
-    metrics = {"l1_loss": l1, "duration_loss": dl, "pitch_loss": pl, "energy_loss": el}
-    total = _nan_guard(l1) + _nan_guard(dl) + _nan_guard(pl) + _nan_guard(el)
+        batch["gold_energy"], w_total=w_total)
+    terms = {"l1_loss": l1 * share, "duration_loss": dl, "pitch_loss": pl, "energy_loss": el}
     if run_glow and glow_loss is not None:
-        total = total + _nan_guard(glow_loss)
-        metrics["glow_loss"] = glow_loss
+        terms["glow_loss"] = glow_loss * share
     if use_discriminator:
-        fake, real = random_windows(after, batch["gold_speech"], batch["speech_lengths"],
-                                    generator=generator, starts=window_starts)
-        gen_loss = state.disc.generator_feedback(fake, real)      # critic frozen
-        crit_loss = state.disc.discriminator_loss(fake, real)     # fake detached
-        total = total + _nan_guard(gen_loss) + _nan_guard(crit_loss)
-        metrics["generator_loss"] = gen_loss
-        metrics["discriminator_loss"] = crit_loss
-    metrics["total_loss"] = total
+        fake, real = random_windows(after, gold, lengths, generator=generator,
+                                    starts=window_starts)
+        terms["generator_loss"] = state.disc.generator_feedback(fake, real) * share
+        terms["discriminator_loss"] = state.disc.discriminator_loss(fake, real) * share
+    if mesh_step is None:
+        metrics = terms
+        total = sum(_nan_guard(v) for v in terms.values())
+    else:  # the global terms: guarded and reported as the global batch's
+        values = mesh_step.sum_data(torch.stack([v.detach() for v in terms.values()]))
+        metrics = dict(zip(terms, values))
+        total = sum(torch.where(torch.isnan(g), torch.zeros_like(v), v)
+                    for g, v in zip(values, terms.values()))
+        metrics["total_loss"] = _nan_guard(values).sum()
     total.backward()
+    metrics.setdefault("total_loss", total)
     return {k: v.detach() for k, v in metrics.items()}
 
 
-def make_train_step(run_glow: bool = True, use_discriminator: bool = False):
+def make_train_step(run_glow: bool = True, use_discriminator: bool = False, mesh=None):
     """-> step(state, batch, generator=None, window_starts=None) -> metrics:
     gradients, the global-norm clip, Adam, the schedule; ``state.step``
-    advances by one."""
+    advances by one.
+
+    ``mesh`` (``dist.make_mesh``): the step of every rank of the mesh, on
+    this rank's share of the global batch (``dist.make_global_batch``) and
+    a state put on the mesh by ``dist.shard_train_state``; it computes JAX's
+    step on the global batch (see ``compute_gradients``), with the
+    gradients summed over 'data' and clipped on their global norm.  Give
+    each rank its rows of the global batch's window starts."""
+    mesh_step = None
+    if mesh is not None:
+        from toucan_tpu_torch.dist.tensor_parallel import MeshStep
+        mesh_step = MeshStep(mesh)
+
     def train_step(state: TrainState, batch, generator=None, window_starts=None):
         if use_discriminator and state.disc is None:
             raise ValueError("use_discriminator needs a state made with a discriminator")
         metrics = compute_gradients(state, batch, run_glow, use_discriminator, generator,
-                                    window_starts)
+                                    window_starts, mesh_step)
         params = state.parameters()
-        for p in params:  # optax moves every moment each step, a zero gradient's too
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        clip_by_global_norm([p.grad for p in params], CLIP)
+        if mesh_step is not None:
+            mesh_step.finish(params, CLIP)
+        else:
+            for p in params:  # optax moves every moment each step, a zero gradient's too
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            clip_by_global_norm([p.grad for p in params], CLIP)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1

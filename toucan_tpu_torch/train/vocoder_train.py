@@ -1,7 +1,6 @@
 """Vocoder (GAN) training: losses, optimizers and the train step.
 
-Counterpart of ``toucan_tpu/train/vocoder_train.py`` on one device (its
-``make_sharded_vocoder_steps`` is not ported); the reference's
+Counterpart of ``toucan_tpu/train/vocoder_train.py``; the reference's
 ``hifigan_train_loop.py:19-182``: the generator's loss is 45 x the L1 of
 24 kHz 100-mel log spectrograms (fft 1536, hop 384, fmin 80), and after
 the warm-up 2 x the adversarial and 2 x the feature-matching losses of the
@@ -115,56 +114,95 @@ def create_vocoder_train_state(generator=None, discriminator=None, g_lr: float =
     return VocoderTrainState(generator, discriminator, g_opt, g_sched, d_opt, d_sched)
 
 
-def _apply(params, grads, optimizer, scheduler):
+def _apply(params, grads, optimizer, scheduler, mesh_step=None):
     """Set each parameter's gradient (zeros where the loss does not reach
-    it, as optax moves every moment), clip, update, advance the schedule;
-    ``.grad`` keeps the clipped gradient after the step."""
+    it, as optax moves every moment), clip (on a mesh: sum over 'data' and
+    clip on the global norm), update, advance the schedule; ``.grad`` keeps
+    the clipped gradient after the step."""
     for p, g in zip(params, grads):
         p.grad = torch.zeros_like(p) if g is None else g
-    clip_by_global_norm([p.grad for p in params], CLIP)
+    if mesh_step is None:
+        clip_by_global_norm([p.grad for p in params], CLIP)
+    else:
+        mesh_step.finish(params, CLIP)
     optimizer.step()
     scheduler.step()
 
 
 def make_vocoder_train_step(use_adversarial: bool = True, mel_weight: float = 45.0,
-                            adv_weight: float = 2.0, fm_weight: float = 2.0):
+                            adv_weight: float = 2.0, fm_weight: float = 2.0, mesh=None):
     """-> step(state, batch, update_discriminator) -> metrics (0-d tensors).
 
     ``batch``: {"gold_wave": (B, T, 1), "mel": (B, T / 384, 80)}.  The
     metric names are JAX's: ``mel_loss``, ``adversarial_loss``,
     ``feature_matching_loss``, ``generator_total`` and, when the critic
-    updates, ``discriminator_loss``."""
+    updates, ``discriminator_loss``.  ``mesh``: the step of each rank, on
+    its share of the global batch (see ``make_sharded_vocoder_steps``)."""
+    mesh_step = None
+    if mesh is not None:
+        from toucan_tpu_torch.dist.tensor_parallel import MeshStep
+        mesh_step = MeshStep(mesh)
+
+    def report(metrics):
+        """The global batch's values of a rank's share-weighted terms."""
+        if mesh_step is not None:
+            metrics = dict(zip(metrics, mesh_step.sum_data(
+                torch.stack([v.detach() for v in metrics.values()]))))
+        return {k: v.detach() for k, v in metrics.items()}
 
     def train_step(state: VocoderTrainState, batch, update_discriminator: bool = False):
         gen, disc = state.generator, state.discriminator
         gold = batch["gold_wave"]
+        # every loss is a mean over the batch: a rank's share of the global one
+        share = 1.0 if mesh_step is None else mesh_step.share(gold.shape[0], gold.device)
         g_params = list(gen.parameters())
         wave, up2, up1 = gen(batch["mel"], return_intermediates=True, differentiable=True)
-        m_loss = mel_loss(wave[..., 0], gold[..., 0])
+        m_loss = mel_loss(wave[..., 0], gold[..., 0]) * share
         total = mel_weight * m_loss
         metrics = {"mel_loss": m_loss}
         if use_adversarial:
             d_fake = disc(wave, up2, up1)
             with torch.no_grad():
                 d_real = disc(gold)
-            adv = generator_adversarial_loss(d_fake)
-            fm = feature_matching_loss(d_fake, d_real)
+            adv = generator_adversarial_loss(d_fake) * share
+            fm = feature_matching_loss(d_fake, d_real) * share
             total = total + adv_weight * adv + fm_weight * fm
             metrics.update(adversarial_loss=adv, feature_matching_loss=fm)
         metrics["generator_total"] = total
         grads = torch.autograd.grad(total, g_params, allow_unused=True)
-        _apply(g_params, grads, state.g_optimizer, state.g_scheduler)
+        _apply(g_params, grads, state.g_optimizer, state.g_scheduler, mesh_step)
         if use_adversarial and update_discriminator:
             d_params = list(disc.parameters())
             fake = [t.detach() for t in (wave, up2, up1)]
-            d_loss = discriminator_adversarial_loss(disc(*fake), disc(gold))
+            d_loss = discriminator_adversarial_loss(disc(*fake), disc(gold)) * share
             grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
-            _apply(d_params, grads, state.d_optimizer, state.d_scheduler)
+            _apply(d_params, grads, state.d_optimizer, state.d_scheduler, mesh_step)
             metrics["discriminator_loss"] = d_loss
         state.step += 1
-        return {k: v.detach() for k, v in metrics.items()}
+        return report(metrics)
 
     return train_step
+
+
+def make_sharded_vocoder_steps(state: VocoderTrainState, mesh, **step_kwargs):
+    """The GAN steps of every rank of the mesh (JAX
+    ``make_sharded_vocoder_steps``): batches split over 'data', the
+    generator's stage 0 and 1 residual convs split on their output channels
+    over 'model' (gathered before the next conv), the 17 critics
+    replicated.  Puts ``state`` on the mesh in place
+    (``dist.shard_vocoder_train_state``) and returns ``(warm_step,
+    adv_step, state)``: ``warm_step(state, batch)`` the mel-only warm-up,
+    ``adv_step(state, batch, update_discriminator)`` the adversarial phase
+    (the critic updates every third step).  Each rank passes its rows of the
+    global batch (``dist.make_global_batch``); every loss is a batch mean,
+    so a rank's mean weighted by its share, summed over 'data', is the
+    global batch's."""
+    from toucan_tpu_torch.dist.mesh import shard_vocoder_train_state
+
+    shard_vocoder_train_state(state, mesh)
+    warm = make_vocoder_train_step(use_adversarial=False, mesh=mesh, **step_kwargs)
+    adv = make_vocoder_train_step(use_adversarial=True, mesh=mesh, **step_kwargs)
+    return (lambda s, b: warm(s, b, False)), adv, state
 
 
 def spectral_sigmas(discriminator) -> dict:

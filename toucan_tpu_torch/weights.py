@@ -570,3 +570,24 @@ def resnet_d_from_jax(variables, size: int = 4) -> dict:
                     w.sd[f"{key}.{conv}.bias"] = _t(bp[conv]["bias"])
     w.linear("fc", p["fc"])
     return w.sd
+
+
+def shard_state_dict(sd: dict, rank: int, n: int, n_stacks: int = 3) -> dict:
+    """'model' rank ``rank`` of ``n``'s share of a state dict by the
+    tensor-parallel rules of ``dist/mesh.py`` (``param_sharding_rules``):
+    each sharded key keeps its slice along the rule's dim, every other key
+    stays whole.  ``n_stacks``: a HiFiGAN's residual stacks per stage."""
+    from toucan_tpu_torch.dist.mesh import param_sharding_rules
+
+    dims = param_sharding_rules(sd, n_stacks)
+    return {k: v.chunk(n, dims[k])[rank].clone() if k in dims else v for k, v in sd.items()}
+
+
+def gather_state_dicts(shards, n_stacks: int = 3) -> dict:
+    """The inverse of ``shard_state_dict``: the ``n`` ranks' shares, in rank
+    order, back to one whole state dict."""
+    from toucan_tpu_torch.dist.mesh import param_sharding_rules
+
+    dims = param_sharding_rules(shards[0], n_stacks)
+    return {k: torch.cat([s[k] for s in shards], dims[k]) if k in dims else v
+            for k, v in shards[0].items()}
