@@ -10,16 +10,22 @@ Phases, each reported on its own lines:
 1. build: nvcc compiles every kernel of the port for sm_90a, one process
    per source, all at once, and prints ptxas's registers / shared memory /
    spills, and the count of tensor-core instructions (HMMA, HGMMA, IMMA)
-   and of ``__dp4a`` (IDP) in the SASS of K1-K4: K1 and K2 must hold
+   and of ``__dp4a`` (IDP) in the SASS of K1-K4: K1 must hold HMMA (f32,
+   and the bf16 kernel's bias) and HGMMA (the bf16 kernel's wgmma), K2
    HMMA, K3 and K4 IMMA (int8) and HMMA (bf16), and K4 no IDP;
 2. k1: the rel-pos flash attention kernel against its plain PyTorch version
    at B=2, H=4, d=48, T in (128, 2048), and at the main path's encoder
    (B=1, T=128) and decoder (B=1, T=2048, 110 and 2048 valid keys), with
-   its time, the plain version's, that of ``scaled_dot_product_attention``
-   on a materialised bias, and its bounds (split TF32 and f32); then its
-   bf16 instantiation (``k1_bf16``) at the same shapes and at d = 96,
-   against its plain version (f32 arithmetic on the same bf16 values),
-   beside the f32 kernel, SDPA on bf16 and its bf16 bound;
+   its device time (a CUDA graph of 20 calls; the eager loop's beside it),
+   the plain version's, that of ``scaled_dot_product_attention`` on a
+   materialised bias timed the same two ways, and its bounds (split TF32
+   and f32); then its bf16 kernel (``k1_bf16``) at the same shapes and at
+   d = 96, against its plain version (f32 arithmetic on the same bf16
+   values), beside the f32 kernel, SDPA on bf16 and its bf16 bound, then
+   at every built head dim and a padded one (40), at T = 1, 127, 1000 and
+   4099 with lengths 0, 1 and T in one batch, each with its launch
+   (``bf16_geometry``: key splits, grid, shared memory, the last checked
+   against the kernel's own);
 3. k2: the fused HiFiGAN stage kernel against its plain version at the four
    stage shapes of 512 and of 2048 mel frames, with the tile and cluster
    each launch took, on HiFiGAN's weights and on weights at unit gain
@@ -262,7 +268,8 @@ from toucan_tpu_torch.kernels import imcol as imcol_module
 from toucan_tpu_torch.kernels import stage as stage_module
 from toucan_tpu_torch.kernels.aliasfree import (alias_free_snake, alias_free_snake_plain,
                                                 alias_free_snake_polyphase)
-from toucan_tpu_torch.kernels.flash_attention import (BUILT_HEAD_DIMS, flash_rel_attention,
+from toucan_tpu_torch.kernels.flash_attention import (BUILT_HEAD_DIMS, bf16_geometry,
+                                                      flash_rel_attention,
                                                       flash_rel_attention_plain)
 from toucan_tpu_torch.kernels.imcol import (imcol_fold, imcol_stage, imcol_stage_plain,
                                             prepare_imcol_stage)
@@ -364,6 +371,11 @@ K5_REF_FACTOR = 2.0
 # head dims K1 is checked and timed at besides the default's 48: built
 # (96, 128) and padded (40), at T = 2048
 K1_WIDTHS = (96, 128, 40)
+# K1's bf16 kernel is also checked at the other built head dims and a
+# padded one, and at lengths of T not a multiple of its 64-row tiles (B = 3,
+# lengths 0, 1 and T in one batch)
+K1_BF16_WIDTHS = (16, 32, 64, 128, 40)
+K1_BF16_LENGTHS = (1, 127, 1000, 4099)
 # K2 at other generators' widths, on their init weights and at unit gain:
 # (C, generator channels, stage); C = 512 runs on clusters of 8 blocks, the
 # others widened with zero channels
@@ -425,9 +437,9 @@ def bound(flops, nbytes, peak=F32_PEAK):
 
 
 # the kernels that run on the tensor cores, and the SASS instructions each
-# must hold: K1 and K2 split TF32 (HMMA), K3 and K4 int8 (IMMA) and bf16
-# (HMMA)
-TENSOR_CORE_KERNELS = {"flash_rel_attention": ("HMMA",), "hifigan_stage": ("HMMA",),
+# must hold: K1 split TF32 and its bf16 bias (HMMA) and its bf16 wgmma
+# (HGMMA), K2 split TF32 (HMMA), K3 and K4 int8 (IMMA) and bf16 (HMMA)
+TENSOR_CORE_KERNELS = {"flash_rel_attention": ("HMMA", "HGMMA"), "hifigan_stage": ("HMMA",),
                        "hifigan_stage_q": ("IMMA", "HMMA"), "hifigan_imcol": ("IMMA", "HMMA")}
 # the kernels whose int8 products must all be on the tensor cores: no IDP
 NO_DP4A = ("hifigan_imcol",)
@@ -499,8 +511,10 @@ def k1_shapes():
 
 
 def phase_k1(dev, gen):
-    """K1 against its plain version, timed beside SDPA and both bounds; the
-    row is the B=2 T=2048 shape's, with the worst error of all."""
+    """K1 against its plain version, timed beside SDPA and both bounds, the
+    kernel and SDPA by a CUDA graph of 20 calls (``graph_ms``) with the
+    eager loop's figure beside it; the row is the B=2 T=2048 shape's graph
+    time, with the worst error of all."""
     h, d = 4, 48
     worst, row = 0.0, None
     for label, b, t, lengths in k1_shapes():
@@ -508,7 +522,8 @@ def phase_k1(dev, gen):
         q_u, q_v, k, v, p, lens = args
         err, want = k1_error(args)
         worst = max(worst, err)
-        ms = time_ms(lambda: flash_rel_attention(*args), 20)
+        ms = graph_ms(lambda: flash_rel_attention(*args))
+        loop_ms = time_ms(lambda: flash_rel_attention(*args), 20)
         plain_ms = time_ms(lambda: flash_rel_attention_plain(*args), 5)
         # yardstick only: SDPA on the same scores with the rel-pos bias and
         # the key mask materialised as a float mask (built outside the timing)
@@ -518,15 +533,17 @@ def phase_k1(dev, gen):
         bias = bias.masked_fill(~(ar[None, :] < lens[:, None])[:, None, None, :], float("-inf"))
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_err = (sdpa(q_u, k, v, attn_mask=bias) - want).abs().max().item()
-        library_ms = time_ms(lambda: sdpa(q_u, k, v, attn_mask=bias), 20)
+        library_ms = graph_ms(lambda: sdpa(q_u, k, v, attn_mask=bias))
+        library_loop_ms = time_ms(lambda: sdpa(q_u, k, v, attn_mask=bias), 20)
         del bias, rel
         flops = sum(6 * h * d * t * int(n) for n in lens.tolist())
         nbytes = 4 * (5 * b * h * t * d + h * (2 * t - 1) * d + b)
         bound_ms, bound_by = bound(flops, nbytes, SPLIT_TF32_PEAK)
         f32_ms, _ = bound(flops, nbytes)
         log("k1", f"{label}: B={b} H={h} T={t} d={d} lengths={lens.tolist()} "
-                  f"max_abs_err={err:.3e} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                  f"library_ms={library_ms:.4f} (sdpa err {lib_err:.2e}) "
+                  f"max_abs_err={err:.3e} kernel_ms={ms:.4f} (graph of 20; eager loop "
+                  f"{loop_ms:.4f}) plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (graph; "
+                  f"eager loop {library_loop_ms:.4f}; sdpa err {lib_err:.2e}) "
                   f"bound_ms={bound_ms:.4f} ({bound_by}, split TF32) f32_bound_ms={f32_ms:.4f} "
                   f"gflop={flops / 1e9:.2f} achieved_tflops={flops / ms / 1e9:.2f}")
         if not err <= TOL_K1:
@@ -736,13 +753,15 @@ def k1_bf16_inputs(gen, dev, b, h, d, t, lengths):
 
 
 def phase_k1_bf16(dev, gen):
-    """K1's bf16 instantiation against its plain version (f32 arithmetic on
-    the same bf16 values) at the shapes of ``k1_shapes`` (d = 48, the
-    default model's) and at B=2 T=2048 with d = 96 (``fastspeech2_config``),
-    timed beside SDPA on the same bf16 inputs with the rel-pos bias and the
-    key mask as a bf16 float mask, and beside the f32 kernel on the same
-    values; bound by bf16 products.  The row is the B=2 T=2048 d=48 shape's,
-    with the worst error of all."""
+    """K1's bf16 kernel against its plain version (f32 arithmetic on the
+    same bf16 values) at the shapes of ``k1_shapes`` (d = 48, the default
+    model's) and at B=2 T=2048 with d = 96 (``fastspeech2_config``), timed
+    by a CUDA graph of 20 calls (the eager loop's figure beside it) beside
+    SDPA on the same bf16 inputs with the rel-pos bias and the key mask as a
+    bf16 float mask, timed the same two ways, and beside the f32 kernel on
+    the same values; bound by bf16 products.  Then ``k1_bf16_checks``.  The
+    row is the B=2 T=2048 d=48 shape's graph time, with the worst error of
+    all."""
     h = 4
     worst, row = 0.0, None
     cases = [(label, b, t, lengths, 48) for label, b, t, lengths in k1_shapes()]
@@ -752,10 +771,11 @@ def phase_k1_bf16(dev, gen):
         q_u, q_v, k, v, p, lens = args
         err, want = k1_error(args)
         worst = max(worst, err)
-        ms = time_ms(lambda: flash_rel_attention(*args), 20)
+        ms = graph_ms(lambda: flash_rel_attention(*args))
+        loop_ms = time_ms(lambda: flash_rel_attention(*args), 20)
         plain_ms = time_ms(lambda: flash_rel_attention_plain(*args), 5)
         f32_args = (*(x.float() for x in args[:5]), lens)
-        f32_ms = time_ms(lambda: flash_rel_attention(*f32_args), 20)
+        f32_ms = graph_ms(lambda: flash_rel_attention(*f32_args))
         ar = torch.arange(t, device=dev)
         rel = (t - 1 - ar[:, None] + ar[None, :]).expand(b, h, t, t)
         bias = torch.gather(q_v.float() @ p.float().transpose(-1, -2)[None], -1, rel) / math.sqrt(d)
@@ -763,23 +783,57 @@ def phase_k1_bf16(dev, gen):
                                 float("-inf")).to(torch.bfloat16)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         lib_err = (sdpa(q_u, k, v, attn_mask=bias).float() - want).abs().max().item()
-        library_ms = time_ms(lambda: sdpa(q_u, k, v, attn_mask=bias), 20)
+        library_ms = graph_ms(lambda: sdpa(q_u, k, v, attn_mask=bias))
+        library_loop_ms = time_ms(lambda: sdpa(q_u, k, v, attn_mask=bias), 20)
         del bias, rel
         flops = sum(6 * h * d * t * int(n) for n in lens.tolist())
         nbytes = 2 * (4 * b * h * t * d + h * (2 * t - 1) * d) + 4 * (b * h * t * d + b)
         bound_ms, bound_by = bound(flops, nbytes, PEAK["bf16"])
+        geo = bf16_geometry(b, h, t, d)
         log("k1_bf16", f"{label}: B={b} H={h} T={t} d={d} lengths={lens.tolist()} "
-                       f"max_abs_err={err:.3e} (tolerance {TOL_K1}) kernel_ms={ms:.4f} "
-                       f"f32_kernel_ms={f32_ms:.4f} plain_ms={plain_ms:.4f} "
-                       f"library_ms={library_ms:.4f} (sdpa bf16 err {lib_err:.2e}) "
+                       f"max_abs_err={err:.3e} (tolerance {TOL_K1}) kernel_ms={ms:.4f} (graph of "
+                       f"20; eager loop {loop_ms:.4f}) f32_kernel_ms={f32_ms:.4f} (graph) "
+                       f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (graph; eager loop "
+                       f"{library_loop_ms:.4f}; sdpa bf16 err {lib_err:.2e}) "
                        f"bound_ms={bound_ms:.4f} ({bound_by}, bf16) "
-                       f"achieved_tflops={flops / ms / 1e9:.2f}")
+                       f"achieved_tflops={flops / ms / 1e9:.2f} splits={geo.splits} "
+                       f"grid={geo.grid}")
         if not err <= TOL_K1:
             raise AssertionError(f"K1 bf16 disagrees with its plain version: {label}: {err:.3e}")
         if label == "B=2 T=2048":
             row = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                        library_ms=library_ms)
+    worst = max(worst, k1_bf16_checks(dev, gen, h))
     return dict(row, max_abs_err=worst)
+
+
+def k1_bf16_checks(dev, gen, h):
+    """K1's bf16 kernel against its plain version within TOL_K1 at every
+    built head dim and a padded one (``K1_BF16_WIDTHS``, B=2 T=2048), and at
+    T not a multiple of its tiles (``K1_BF16_LENGTHS``, across split
+    boundaries) with lengths 0, 1 and T in one batch; each launch's
+    geometry logged, its shared memory held to the kernel's own.  Returns
+    the worst error."""
+    lib = build.load("flash_rel_attention")
+    worst = 0.0
+    cases = [(f"d={d}", 2, 2048, [2048, int(0.7 * 2048)], d) for d in K1_BF16_WIDTHS]
+    cases += [(f"T={t}", 3, t, [0, 1, t], 48) for t in K1_BF16_LENGTHS]
+    for label, b, t, lengths, d in cases:
+        err, _ = k1_error(k1_bf16_inputs(gen, dev, b, h, d, t, lengths))
+        worst = max(worst, err)
+        geo = bf16_geometry(b, h, t, d)
+        width = next(w for w in BUILT_HEAD_DIMS if w >= d)
+        smem = lib.flash_rel_attention_bf16_smem(width)
+        log("k1_bf16", f"check {label}: B={b} H={h} T={t} d={d} lengths={lengths} "
+                       f"max_abs_err={err:.3e} (tolerance {TOL_K1}) splits={geo.splits} "
+                       f"tiles_per_split={geo.tiles_per_split} grid={geo.grid} "
+                       f"smem={geo.smem_bytes} (kernel {smem})")
+        if not err <= TOL_K1:
+            raise AssertionError(f"K1 bf16 disagrees with its plain version: {label}: {err:.3e}")
+        if smem != geo.smem_bytes:
+            raise AssertionError(f"bf16_geometry's shared memory {geo.smem_bytes} at d={width} "
+                                 f"is not the kernel's {smem}")
+    return worst
 
 
 def k5_bf16_error(x, alpha, beta):
