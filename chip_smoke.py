@@ -193,7 +193,21 @@ Phases, each reported on its own lines:
      the first co-training step;
    - wgan_qc: ``ResNetG()`` and ``ResNetD()``, batch 32, 5 steps with the
      host LP timed apart; one step with ``z``, the potentials and the
-     ordered reals given to both sides.
+     ordered reals given to both sides;
+   - corpus: a seeded NancyKrebs corpus (24 utterances of 1.5-4 s at
+     22 050 Hz, IPA transcripts) in a temporary ``TOUCAN_CORPORA_ROOT``;
+     the aligner cache on the card with 4 forked workers (host work after
+     CUDA is up) against the CPU's (text and wave equal, the mel in power
+     within TOL_MEL_POWER); the FastSpeech cache of a seeded full-size
+     ``Aligner()`` card against CPU (durations equal or a near-tie,
+     pitch and energy within TOL_PROSODY); ``AlignmentScorer`` and
+     ``TTSScorer`` (``ToucanTTSConfig()`` and the GST) card against CPU
+     (TOL_ALIGNER_LOGITS, TOL_SCORE), the scorer's K1 launches counted (12
+     an utterance); the recipes ``tt_it`` (4 steps at batch 8, run to the
+     epoch's end), ``fs_it`` (2), ``aligner`` (8) and ``embedding`` (2),
+     none launching a kernel, each artefact read by ``load.py``;
+     ``run.weight_averaging.make_best_in_all`` and its ``best.pt``; the
+     CLI's ``--help`` and a dispatch to a stub.
 16. distribution (last), its ranks started with ``spawn`` after the build
    (``dist/launch.py::run_ranks``: a clock each, the group torn down on a
    failure), sizes in DIST:
@@ -226,10 +240,12 @@ nonzero.  TF32 is off for matmuls and cuDNN, for the plain versions; the
 port's entry points pin f32 themselves.
 """
 
+import contextlib
 import copy
 import dataclasses
 import functools
 import gc
+import io
 import json
 import math
 import os
@@ -243,11 +259,14 @@ import weakref
 import numpy as np
 import torch
 
-from toucan_tpu_torch import native
+from toucan_tpu_torch import cli, native
 from toucan_tpu_torch.frontend import audio
 from toucan_tpu_torch.data import batching
+from toucan_tpu_torch.data.corpus import build_aligner_cache, build_fastspeech_cache
+from toucan_tpu_torch.data.corpus_recipes import build_path_to_transcript_dict
 from toucan_tpu_torch.data.extraction import compute_frame_energy
 from toucan_tpu_torch.data.prefetch import to_tensors
+from toucan_tpu_torch.data.scorer import AlignmentScorer, TTSScorer
 from toucan_tpu_torch.data.vocoder_data import SEGMENT_24K, VocoderDataset
 from toucan_tpu_torch.dist.longform import synthesize_longform
 from toucan_tpu_torch.dist.mesh import (all_gather, make_global_batch, make_mesh,
@@ -277,7 +296,8 @@ from toucan_tpu_torch.kernels.resstack import (hifigan_stage, hifigan_stage_plai
                                                kernel_channels, pack_stage, tiling_for)
 from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_stage,
                                             quantized_stage, quantized_stage_plain)
-from toucan_tpu_torch.load import (GLOW_WEIGHT_NORM, interface_from_torch, load_vocoder,
+from toucan_tpu_torch.load import (GLOW_WEIGHT_NORM, interface_from_torch, load_aligner,
+                                   load_style_embedding, load_toucan_tts, load_vocoder,
                                    split_weight_norm)
 from toucan_tpu_torch.models import embedding_gan as embedding_gan_module
 from toucan_tpu_torch.models.aligner import (Aligner, alignment_from_logits, mas_numpy, mas_torch,
@@ -292,11 +312,16 @@ from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.discriminators import AvocodoJointDiscriminator
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 from toucan_tpu_torch.nn import positional
-from toucan_tpu_torch.recipes.pipelines import _aligner_train_fn, aligner_batch, avocodo_pipeline
+from toucan_tpu_torch.recipes.pipelines import (_aligner_train_fn, aligner_batch, aligner_pipeline,
+                                                avocodo_pipeline, embedding_pipeline,
+                                                fs_embedding_integration_test_pipeline,
+                                                integration_test_pipeline)
+from toucan_tpu_torch.run.weight_averaging import make_best_in_all
 from toucan_tpu_torch.train import sharded_checkpointing as sharded_ckpt
 from toucan_tpu_torch.train.aligner_train import (TinyTTS, create_aligner_train_state,
                                                   make_aligner_train_step,
                                                   make_sharded_aligner_step)
+from toucan_tpu_torch.train.checkpointing import list_checkpoints
 from toucan_tpu_torch.train.embedding_train import (create_embedding_train_state,
                                                     make_embedding_train_step,
                                                     make_finetune_step,
@@ -2617,6 +2642,27 @@ def write_ljspeech(root, n=12, seed=SEED, sr=22050):
         f.write("\n".join(lines))
 
 
+@contextlib.contextmanager
+def recipe_environment(root):
+    """Corpora under ``root/corpora``, models under ``root/Models``, and
+    ``root`` the working directory (the recipes' caches go to ``Corpora/``
+    there); everything restored after."""
+    saved = {k: os.environ.get(k) for k in ("TOUCAN_CORPORA_ROOT", "TOUCAN_MODELS_DIR")}
+    cwd = os.getcwd()
+    os.environ["TOUCAN_CORPORA_ROOT"] = os.path.join(root, "corpora")
+    os.environ["TOUCAN_MODELS_DIR"] = os.path.join(root, "Models")
+    os.chdir(root)
+    try:
+        yield
+    finally:
+        os.chdir(cwd)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
 def reset_counts():
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
@@ -2630,7 +2676,7 @@ def check_no_launches(what):
 
 def marker(marks):
     def mark(step, metrics):  # the metrics' read waits for the step
-        values = {k: v.item() for k, v in metrics.items()}
+        values = {k: float(v) for k, v in metrics.items()}
         marks.append((step, time.perf_counter(), values))
         if not all(np.isfinite(v) for v in values.values()):
             raise AssertionError(f"step {step}: a loss is not finite: {values}")
@@ -2734,9 +2780,7 @@ def phase_vocoder_train(dev, launches, card):
     reset_peak()
     with tempfile.TemporaryDirectory() as tmp:
         write_ljspeech(os.path.join(tmp, "corpora"))
-        old = os.environ.get("TOUCAN_CORPORA_ROOT")
-        os.environ["TOUCAN_CORPORA_ROOT"] = os.path.join(tmp, "corpora")
-        try:
+        with recipe_environment(tmp):
             torch.manual_seed(SEED + 21)
             t0 = time.perf_counter()
             state = avocodo_pipeline(steps=VOC_STEPS, batch_size=VOC_BATCH,
@@ -2745,11 +2789,6 @@ def phase_vocoder_train(dev, launches, card):
                                      discriminator=joint_discriminator(SEGMENT_24K, SEED + 22),
                                      callbacks=[marker(marks)])
             run_s = time.perf_counter() - t0
-        finally:
-            if old is None:
-                os.environ.pop("TOUCAN_CORPORA_ROOT")
-            else:
-                os.environ["TOUCAN_CORPORA_ROOT"] = old
         check_no_launches("the vocoder train steps")
         if [m[0] for m in marks] != list(range(VOC_STEPS)) or state.step != VOC_STEPS:
             raise AssertionError(f"avocodo_pipeline ran steps {[m[0] for m in marks]}")
@@ -3061,6 +3100,246 @@ def phase_wgan_qc(dev, card):
                  functools.partial(wgan_step, real=real, z=z, ot=ot), dev, TOL_TRAIN_LOSS,
                  zero=("g.fc.bias",))
     log("wgan_qc", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+# ------------------------------------------------------------------ corpus
+
+# The corpus phase: a seeded NancyKrebs layout (``metadata.csv`` + ``wav/``)
+# of harmonic tones at 22 050 Hz (resampled to 16 kHz) with IPA transcripts
+CORPUS_UTTERANCES = 24
+CORPUS_SR = 22050
+CORPUS_SECONDS = (1.5, 4.0)
+CORPUS_PROCESSES = 4       # build_aligner_cache's workers, started after CUDA is up
+IPA_WORDS = ["ðɪs", "ɪz", "ə", "tˈɛst", "hɛlˈoʊ", "wˈɜːld", "ʃˈɔːt", "sˈɛntəns", "wˈʌn",
+             "mˈoːɹ", "tˈaɪm", "fˈɔːɹ", "ðə", "ɹˈoʊd"]
+# the recipes' steps: tt_it at batch 8 (three batches an epoch), fs_it at
+# batch 8, the aligner at batch 8, the embedding pipeline at its batch 16
+RECIPE_STEPS = dict(tt_it=4, fs_it=2, aligner=8, embedding=2)
+TOL_SCORE = 1e-4           # a scorer's score, card against CPU, relative
+
+
+def write_nancy(root, n=CORPUS_UTTERANCES, seed=SEED + 80, sr=CORPUS_SR):
+    """A seeded NancyKrebs layout of harmonic tones with noise, 1.5-4 s at
+    22 050 Hz, each with an IPA transcript of 2-6 words: made here."""
+    base = os.path.join(root, "NancyKrebs")
+    os.makedirs(os.path.join(base, "wav"))
+    rng = np.random.RandomState(seed)
+    lines = []
+    for i in range(n):
+        t = np.arange(int(sr * rng.uniform(*CORPUS_SECONDS))) / sr
+        f0 = rng.uniform(90, 250) * (1 + 0.1 * np.sin(2 * np.pi * rng.uniform(0.5, 3) * t))
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        wave = sum(np.sin(k * phase) / k for k in range(1, 8))
+        wave = 0.3 * wave / np.abs(wave).max() + 0.01 * rng.randn(len(t))
+        write_wav(os.path.join(base, "wav", f"nancy{i:03d}.wav"), wave.astype(np.float32), sr)
+        words = rng.choice(IPA_WORDS, rng.randint(2, 7))
+        lines.append(f"nancy{i:03d}|~{' '.join(words)}~#")
+    with open(os.path.join(base, "metadata.csv"), "w", encoding="utf8") as f:
+        f.write("\n".join(lines))
+
+
+def check_aligner_caches(card, cpu):
+    """The card's cache (mels on the card, host work in workers) against
+    the CPU's (one process): text and wave equal, the mel in power within
+    TOL_MEL_POWER of its peak."""
+    if len(card) != len(cpu) or len(card) != CORPUS_UTTERANCES:
+        raise AssertionError(f"aligner caches of {len(card)} and {len(cpu)} utterances")
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        if a["path"] != b["path"] or not np.array_equal(a["text"], b["text"]) \
+                or not np.array_equal(a["wave"], b["wave"]):
+            raise AssertionError(f"{a['path']}: text or wave differs, card against CPU")
+        pa, pb = 10.0 ** a["mel"].astype(np.float64), 10.0 ** b["mel"].astype(np.float64)
+        worst = max(worst, float(np.abs(pa - pb).max() / pb.max()))
+    if not worst <= TOL_MEL_POWER:
+        raise AssertionError(f"mel power differs by {worst:.3e} of its peak")
+    return worst
+
+
+def check_fastspeech_caches(card, cpu, aligner_sd, dev):
+    """Durations equal, or a near-tie of the two sides' alignments
+    (``check_alignments`` on each side's logits); pitch and energy within
+    TOL_PROSODY where the durations agree.  Returns a summary."""
+    aligners = {side: AlignmentScorer(aligner_sd, device=side).aligner for side in (dev, "cpu")}
+    equal, ties, prosody = 0, [], 0.0
+    for a, b in zip(card, cpu):
+        if np.array_equal(a["durations"], b["durations"]):
+            equal += 1
+            prosody = max(prosody, float(np.abs(a["pitch"] - b["pitch"]).max()),
+                          float(np.abs(a["energy"] - b["energy"]).max()))
+            continue
+        ids = vectors_to_ctc_ids(a["text"])
+        preds, aligns = [], []
+        for side, aligner in aligners.items():
+            with torch.inference_mode(), matmul_precision("float32"):
+                mel = torch.from_numpy(a["mel"][None]).to(side)
+                logits = aligner(mel)[0].cpu().numpy()
+            preds.append(logits[:, ids])
+            aligns.append(alignment_from_logits(logits, ids))
+        ties.append(check_alignments("MAS", preds, aligns))
+    if not prosody <= TOL_PROSODY:
+        raise AssertionError(f"pitch or energy differ by {prosody:.3e}")
+    return equal, ties, prosody
+
+
+def run_recipe(name, fn, dev, card, **kw):
+    """One recipe on ``dev`` with its steps marked; no step may launch a
+    kernel.  Logs its wall time, its step times and the last losses."""
+    marks = []
+    reset_counts()
+    out, sec = timed(lambda: fn(device=dev, callbacks=[marker(marks)], use_g2p=False,
+                                **kw))
+    check_no_launches(f"the {name} recipe")
+    if not marks:
+        raise AssertionError(f"{name} ran no step")
+    ts = step_times(marks, lambda s: "step").get("step", [])
+    log("corpus", f"{name}: {len(marks)} steps in {sec:.2f} s of wall time (corpus "
+                  f"preparation included); steps after the first {fmt_ms(ts)}; last losses "
+                  + ", ".join(f"{k}={v:.4f}" for k, v in marks[-1][2].items()) + f" ({card})")
+    return out
+
+
+def phase_corpus(dev, launches, card):
+    """The last modules on the card: corpus caches, scorers, recipes, the
+    weight averaging and the CLI, at the default models' full widths with
+    seeded weights, on a seeded NancyKrebs corpus (24 utterances, 22 050
+    Hz, IPA transcripts, ``use_g2p=False``):
+
+    - the aligner cache on the card with CORPUS_PROCESSES workers (started
+      after CUDA is up; host work only) against the CPU's in one process;
+    - the FastSpeech cache from one seeded full-size ``Aligner()``, card
+      against CPU on the card's aligner cache;
+    - ``AlignmentScorer`` and ``TTSScorer`` (``ToucanTTSConfig()``, seeded,
+      the GST's embeddings) over the card's cache, card against CPU, K1
+      counted: 12 launches an utterance scored;
+    - ``integration_test_pipeline`` (tt_it), ``fs_embedding_integration_
+      test_pipeline`` (fs_it), ``aligner_pipeline`` and
+      ``embedding_pipeline`` on the card, each artefact read by ``load.py``;
+    - ``run.weight_averaging.make_best_in_all`` over the models, its
+      ``best.pt`` read by ``load_toucan_tts``;
+    - ``cli.main`` with ``--help`` and dispatching to a stub."""
+    t_phase = time.perf_counter()
+    reset_counts()
+    with tempfile.TemporaryDirectory() as tmp, recipe_environment(tmp):
+        write_nancy(os.path.join(tmp, "corpora"))
+        mapping = build_path_to_transcript_dict("integration_test")
+        card_data, sec = timed(lambda: build_aligner_cache(
+            mapping, "card_cache", "en", loading_processes=CORPUS_PROCESSES, use_g2p=False,
+            device=dev))
+        cpu_data, cpu_sec = timed(lambda: build_aligner_cache(
+            mapping, "cpu_cache", "en", loading_processes=1, use_g2p=False, device="cpu"))
+        err = check_aligner_caches(card_data, cpu_data)
+        frames = sum(len(d["mel"]) for d in card_data)
+        log("corpus", f"aligner cache of {len(card_data)} utterances ({frames} frames, "
+                      f"{sum(len(d['wave']) for d in card_data) / 16000:.1f} s at 16 kHz): "
+                      f"card with {CORPUS_PROCESSES} workers {sec:.2f} s, CPU in one process "
+                      f"{cpu_sec:.2f} s; text and wave equal, mel power within {err:.3e} of "
+                      f"its peak (tolerance {TOL_MEL_POWER}; {card})")
+
+        aligner_sd = seeded_aligner_state(SEED + 81)
+        fast_card, sec = timed(lambda: build_fastspeech_cache(card_data, aligner_sd,
+                                                              "card_cache", "en", device=dev))
+        fast_cpu, cpu_sec = timed(lambda: build_fastspeech_cache(card_data, aligner_sd,
+                                                                 "cpu_fast", "en", device="cpu"))
+        equal, ties, prosody = check_fastspeech_caches(fast_card, fast_cpu, aligner_sd, dev)
+        log("corpus", f"fastspeech cache: card {sec:.2f} s, CPU {cpu_sec:.2f} s; durations "
+                      f"equal on {equal} of {len(fast_card)} utterances, pitch and energy "
+                      f"there within {prosody:.3e} (tolerance {TOL_PROSODY})"
+                      + "".join(f"; {t}" for t in ties))
+        check_no_launches("the corpus caches")
+
+        aligner_scores = {}
+        for side in (dev, "cpu"):
+            aligner_scores[str(side)], sec = timed(
+                lambda: AlignmentScorer(aligner_sd, device=side).score(fast_card))
+            log("corpus", f"AlignmentScorer on {side}: {sec:.3f} s for {len(fast_card)} "
+                          "utterances")
+        card_ctc, cpu_ctc = aligner_scores[str(dev)], aligner_scores["cpu"]
+        rel = np.abs(card_ctc - cpu_ctc) / np.abs(cpu_ctc)
+        if not rel.max() <= TOL_ALIGNER_LOGITS:
+            raise AssertionError(f"CTC scores differ by {rel.max():.3e} relative")
+        log("corpus", f"CTC scores card against CPU within {rel.max():.3e} relative "
+                      f"(tolerance {TOL_ALIGNER_LOGITS})")
+
+        torch.manual_seed(SEED + 82)
+        cfg = ToucanTTSConfig()
+        blocks = cfg.enc_layers + cfg.dec_layers  # one K1 launch each: 12 at the default
+        tts_sd, gst_sd = ToucanTTS(cfg).state_dict(), StyleEmbedding().state_dict()
+        scorer = TTSScorer(tts_sd, cfg, gst_state_dict=gst_sd, device=dev)
+        scorer.score(fast_card[:1])                       # warm-up: cuDNN plans, kernels
+        reset_counts()
+        card_scores, sec = timed(lambda: scorer.score(fast_card))
+        got = {k: w.launches for k, w in WRAPPERS.items()}
+        expect = per_synthesis(len(fast_card), k1=blocks)
+        want = {k: expect.get(k, 0) for k in WRAPPERS}
+        if got != want:
+            raise AssertionError(f"TTSScorer: expected launches {want}, got {got}")
+        launches["k1"] += got["k1"]
+        cpu_scores, cpu_sec = timed(lambda: TTSScorer(tts_sd, cfg, gst_state_dict=gst_sd,
+                                                      device="cpu").score(fast_card))
+        rel = np.abs(card_scores - cpu_scores) / np.abs(cpu_scores)
+        log("corpus", f"TTSScorer (ToucanTTSConfig(), GST) over {len(fast_card)} utterances: "
+                      f"card {sec:.3f} s ({1e3 * sec / len(fast_card):.2f} ms an utterance), "
+                      f"CPU {cpu_sec:.2f} s; k1_launches={got['k1']} ({blocks} an utterance "
+                      "scored); "
+                      f"scores within {rel.max():.3e} relative (tolerance {TOL_SCORE}); worst 3 "
+                      f"{[int(i) for i in scorer.worst_n(3)]}, the CPU's "
+                      f"{[int(i) for i in np.argsort(cpu_scores)[::-1][:3]]}; nan_indexes "
+                      f"{scorer.nan_indexes()} ({card})")
+        if not (np.isfinite(card_scores).all() and rel.max() <= TOL_SCORE):
+            raise AssertionError("TTSScorer's scores on the card disagree with the CPU's")
+
+        # the recipes read the aligner cache built above rather than build it again
+        for name in ("integration_test", "nancy"):
+            os.makedirs(os.path.join("Corpora", name))
+            shutil.copy(os.path.join("card_cache", "aligner_train_cache.npz"),
+                        os.path.join("Corpora", name))
+        models = os.path.join(tmp, "Models")
+        run_recipe("tt_it", integration_test_pipeline, dev, card, steps=RECIPE_STEPS["tt_it"],
+                   batch_size=8, log_every=1)
+        tts_dir = os.path.join(models, "ToucanTTS_IntegrationTest")
+        ckpts = list_checkpoints(tts_dir)
+        sd, emb = load_toucan_tts(ckpts[-1])
+        ToucanTTS(ToucanTTSConfig()).load_state_dict(sd)
+        run_recipe("fs_it", fs_embedding_integration_test_pipeline, dev, card,
+                   steps=RECIPE_STEPS["fs_it"], batch_size=8)
+        StyleEmbedding().load_state_dict(load_style_embedding(
+            os.path.join(models, "FastSpeech2_IntegrationTest", "embedding_function.pt")))
+        run_recipe("aligner", aligner_pipeline, dev, card, steps=RECIPE_STEPS["aligner"])
+        AlignmentScorer(load_aligner(os.path.join(models, "Aligner", "aligner.pt")), device="cpu")
+        run_recipe("embedding", embedding_pipeline, dev, card, steps=RECIPE_STEPS["embedding"])
+        StyleEmbedding().load_state_dict(load_style_embedding(
+            os.path.join(models, "Embedding", "embedding_function.pt")))
+        log("corpus", f"recipe artefacts read by load.py: {[os.path.basename(p) for p in ckpts]} "
+                      "(load_toucan_tts), FastSpeech2_IntegrationTest/embedding_function.pt "
+                      "and Embedding/embedding_function.pt (load_style_embedding), "
+                      "Aligner/aligner.pt (load_aligner)")
+
+        (_, sec) = timed(lambda: make_best_in_all(models, n=2))
+        sd, emb = load_toucan_tts(os.path.join(tts_dir, "best.pt"))
+        ToucanTTS(ToucanTTSConfig()).load_state_dict(sd)
+        log("corpus", f"make_best_in_all over {len(ckpts)} checkpoints in {sec:.2f} s: best.pt "
+                      "read by load_toucan_tts")
+
+        help_out = io.StringIO()
+        with contextlib.redirect_stdout(help_out):
+            try:
+                cli.main(["tt_it", "--help"])
+            except SystemExit as e:
+                if e.code != 0:
+                    raise
+        calls = []
+        real = cli.build_pipeline_dict
+        cli.build_pipeline_dict = lambda: {k: lambda **kw: calls.append(kw) for k in real()}
+        try:
+            cli.main(["tt_it", "--corpora_root", os.path.join(tmp, "corpora"), "--resume"])
+        finally:
+            cli.build_pipeline_dict = real
+        if not (len(calls) == 1 and calls[0]["device"] is None and calls[0]["resume"]):
+            raise AssertionError(f"cli.main dispatched {calls}")
+        log("corpus", f"cli: --help lists {help_out.getvalue().count('--')} flags; main "
+                      f"dispatched tt_it with {sorted(calls[0])}")
+    log("corpus", f"phase wall time {time.perf_counter() - t_phase:.1f} s ({card})")
 
 
 # ------------------------------------------------------------- distribution
@@ -3709,6 +3988,7 @@ def main():
     phase_aligner_train(dev, smi)
     phase_embedding_train(dev, smi)
     phase_wgan_qc(dev, smi)
+    phase_corpus(dev, launches, smi)
     ranks = phase_dist_train(smi)
     phase_sharded_ckpt(ranks, smi)
     phase_longform(ranks, launches, smi)

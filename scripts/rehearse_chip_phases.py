@@ -5,8 +5,10 @@ Runs ``phase_clone``, ``phase_controllable``, ``phase_main_bf16`` (HiFiGAN
 and BigVGAN), ``phase_precision``, ``phase_fastspeech2``,
 ``phase_stochastic``, ``phase_train``, the phases of the rest of
 training (``phase_vocoder_train``, ``phase_bigvgan_train``,
-``phase_aligner_train``, ``phase_embedding_train``, ``phase_wgan_qc``) and
-of distribution (``dist``: ``phase_dist_train``, ``phase_sharded_ckpt``,
+``phase_aligner_train``, ``phase_embedding_train``, ``phase_wgan_qc``),
+``phase_corpus`` (the corpus caches, scorers, recipes and CLI; the recipes'
+models tiny, the corpus at its size) and of distribution (``dist``:
+``phase_dist_train``, ``phase_sharded_ckpt``,
 ``phase_longform``, ``phase_pipelined``, ``phase_scaling``, their ranks
 gloo CPU processes, the NCCL one too) on
 tiny models (the tiny ToucanTTS of the port's tests, also as the
@@ -26,6 +28,7 @@ With names (``vocoder_train``, ``wgan_qc``, ...) only those phases run.
 """
 
 import dataclasses
+import functools
 import os
 import sys
 import time
@@ -47,6 +50,7 @@ from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN  # noqa: E402
 from toucan_tpu_torch.models.vocoders.discriminators import \
     AvocodoJointDiscriminator  # noqa: E402
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator  # noqa: E402
+from toucan_tpu_torch.train import aligner_train, embedding_train  # noqa: E402
 from toucan_tpu_torch.train.aligner_train import TinyTTS  # noqa: E402
 
 TINY = ToucanTTSConfig(adim=32, aheads=2, enc_layers=1, enc_units=64, dec_layers=1, dec_units=64,
@@ -78,6 +82,22 @@ def dist_phases(cpu_dev, launches):
         if name == "dist_train":
             ranks = out
         print(f"rehearsal: phase_{name} passed in {time.perf_counter() - t0:.1f} s (CPU)")
+
+
+def corpus_phase(cpu_dev, launches):
+    """``phase_corpus`` with the tiny ToucanTTS as the scorer's and the TTS
+    and co-training recipes' model, and the tiny aligner and ``TinyTTS``
+    in the aligner's training."""
+    chip_smoke.ToucanTTSConfig = lambda: TINY
+    chip_smoke.integration_test_pipeline = functools.partial(
+        chip_smoke.integration_test_pipeline, config=TINY)
+    chip_smoke.fs_embedding_integration_test_pipeline = functools.partial(
+        chip_smoke.fs_embedding_integration_test_pipeline, config=TINY)
+    embedding_train.fastspeech2_config = lambda: TINY
+    aligner_train.Aligner = lambda: Aligner(conv_dim=64, lstm_dim=32)
+    aligner_train.TinyTTS = lambda speaker_embedding_dim: TinyTTS(
+        speaker_embedding_dim=speaker_embedding_dim, lstm_dim=32)
+    chip_smoke.phase_corpus(cpu_dev, launches, "CPU")
 
 
 def main():
@@ -147,6 +167,7 @@ def main():
                         ("embedding_train", lambda: chip_smoke.phase_embedding_train(
                             cpu_dev, "CPU")),
                         ("wgan_qc", lambda: chip_smoke.phase_wgan_qc(cpu_dev, "CPU")),
+                        ("corpus", lambda: corpus_phase(cpu_dev, launches)),
                         ("dist", lambda: dist_phases(cpu_dev, launches))):
         if sys.argv[1:] and name.split()[0] not in sys.argv[1:]:
             continue

@@ -5,7 +5,8 @@ end with neither JAX, flax, optax, orbax nor the JAX package loaded; so
 must one that imports only the distribution slice's modules
 (``dist/``, ``infer/pipelined.py``, ``train/sharded_checkpointing.py``) or
 the worker script that the multi-rank tests start
-(``tests/torch_dist_worker.py``).  A source scan finds no import of them in
+(``tests/torch_dist_worker.py``); importing the training CLI loads none of
+its recipes.  A source scan finds no import of them in
 the package, in ``chip_smoke.py`` or in that worker.  The frontend is a
 verbatim copy and must give the JAX package's feature arrays exactly.
 """
@@ -64,6 +65,31 @@ def test_distribution_modules_and_workers_import_no_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ONE, *DISTRIBUTION], cwd=ROOT,
                          capture_output=True, text=True, timeout=120, check=True).stdout
     assert out.split() == ["[]"], out
+
+
+_IMPORT_CLI = """
+import sys
+import toucan_tpu_torch.cli
+light = sorted(m for m in sys.modules if m.startswith(("toucan_tpu_torch.", "torch")))
+import toucan_tpu_torch.run.training_pipeline, toucan_tpu_torch.run.weight_averaging
+import toucan_tpu_torch.run.scorer
+from toucan_tpu_torch.frontend import multilinguality
+solver = multilinguality.SimilaritySolver()
+print(light, multilinguality._DATA_DIR, len(solver.fullnames) > 1000, sorted(
+    m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "orbax",
+                                                  "toucan_tpu")))
+"""
+
+
+def test_cli_imports_no_recipe_and_the_twins_import_no_jax():
+    """Importing the CLI loads no recipe, model or torch (its pipelines
+    are imported when ``main`` runs); the three training-side twins and the
+    multilinguality data, read from the port's own copy, bring in no JAX."""
+    out = subprocess.run([sys.executable, "-c", _IMPORT_CLI], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True).stdout.split()
+    assert out[0] == "['toucan_tpu_torch.cli']", out
+    assert pathlib.Path(out[1]) == ROOT / "toucan_tpu_torch/frontend/data/multilinguality"
+    assert out[2:] == ["True", "[]"], out
 
 
 _FORBIDDEN = re.compile(

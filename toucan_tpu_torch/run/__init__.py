@@ -1,11 +1,14 @@
-"""The serving scripts of the repository's root, driving the port.
+"""The scripts of the repository's root, driving the port.
 
-Each module is the twin of a root script (``run_text_to_file_reader.py``,
+Each module is the twin of a root script and runs with ``python -m
+toucan_tpu_torch.run.<name>``: serving (``run_text_to_file_reader.py``,
 ``run_prosody_override.py``, ``run_interactive_demo.py``,
-``run_controllable_GUI.py``) and runs with ``python -m
-toucan_tpu_torch.run.<name>``.  Checkpoints are read from the reference
+``run_controllable_GUI.py``), training (``run_training_pipeline.py``, the
+CLI of ``toucan_tpu_torch/cli.py``), checkpoint averaging
+(``run_weight_averaging.py``) and data scoring (``run_scorer.py``).
+Checkpoints are read from the reference
 release's layout under ``TOUCAN_MODELS_DIR`` (default ``Models``), as the
-root scripts read them.  The interface runs on the card unless
+root scripts read them.  Everything runs on the card unless
 ``--device cpu`` is given; ``--dtype bfloat16`` and ``--matmul_precision
 default`` choose the serving dtype and precision policy
 (``infer/interface.py``).

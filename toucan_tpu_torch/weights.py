@@ -11,8 +11,8 @@ convert_toucan_tts``, ``compat/torch_vocoder.py::convert_hifigan`` /
 ``compat/torch_stochastic.py::convert_stochastic_toucan_tts``, and give the
 spectrogram discriminator, the embedding VAE, a JAX train state, the
 vocoders' joint critic (both ways), a JAX vocoder train state, the
-aligner's ``TinyTTS`` and the WGAN-QC critic theirs: only layouts change
-(flax (k, in, out) conv kernels and (in, out) dense
+aligner's ``TinyTTS``, the WGAN-QC critic and the plain attention
+theirs: only layouts change (flax (k, in, out) conv kernels and (in, out) dense
 kernels become torch (out, in, k) and (out, in)), never values.  No JAX
 is needed to call them.
 """
@@ -365,6 +365,15 @@ def style_embedding_from_jax(variables) -> dict:
     w.sd["gst.stl.gst_embs"] = _t(stl["gst_embs"])
     for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
         w.linear(f"gst.stl.mha.{name}", stl[name])
+    return w.sd
+
+
+def multi_headed_attention_from_jax(variables) -> dict:
+    """JAX ``nn/attention.py::MultiHeadedAttention`` variables -> the
+    port's ``MultiHeadedAttention`` state dict (four dense layers)."""
+    w = _Writer()
+    for name in ("linear_q", "linear_k", "linear_v", "linear_out"):
+        w.linear(name, variables["params"][name])
     return w.sd
 
 
