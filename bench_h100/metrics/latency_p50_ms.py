@@ -1,0 +1,8 @@
+"""Median host-clock time from a request's send to its wave on the host,
+over every request of the window."""
+
+from bench_h100.harness.run import percentile_ms
+
+
+def read(run):
+    return percentile_ms(run, 50)
