@@ -22,7 +22,8 @@ one stream can capture into one memory pool (``pool``, from
 ``torch.cuda.graph_pool_handle()``): a replay of another bucket may
 overwrite this one's intermediates and static outputs, never a copy handed
 back.  Nothing waits for the device, so a caller can queue several calls
-before it reads the first.
+before it reads the first.  A call runs in a ``toucan.replay`` span, a
+capture in a ``toucan.capture`` span (``utils.profiling.span``).
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ import torch
 
 from toucan_tpu_torch.kernels import build
 from toucan_tpu_torch.utils.device import matmul_precision
+from toucan_tpu_torch.utils.profiling import span
 
 
 class Bucket:
@@ -56,26 +58,27 @@ class Bucket:
             self._capture(pool)
 
     def _capture(self, pool):
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()   # so that the reserved bytes below are the capture's own
-        reserved = torch.cuda.memory_reserved(self.device)
-        t0 = time.perf_counter()
-        with torch.inference_mode(), matmul_precision(self.policy), \
-                torch.cuda.device(self.device):
-            side = torch.cuda.Stream(self.device)
-            side.wait_stream(torch.cuda.current_stream(self.device))
-            with torch.cuda.stream(side):
-                self.step(**self.inputs)
-            torch.cuda.current_stream(self.device).wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with build.CaptureTally() as tally:
-                with torch.cuda.graph(graph, pool=pool):
-                    self.outputs = self.step(**self.inputs)
-        torch.cuda.synchronize(self.device)
-        torch.cuda.empty_cache()   # the warm-up's blocks
-        self.graph, self.tally = graph, tally
-        self.capture_s = time.perf_counter() - t0
-        self.reserved_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        with span("toucan.capture"):
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()   # so that the reserved bytes below are the capture's own
+            reserved = torch.cuda.memory_reserved(self.device)
+            t0 = time.perf_counter()
+            with torch.inference_mode(), matmul_precision(self.policy), \
+                    torch.cuda.device(self.device):
+                side = torch.cuda.Stream(self.device)
+                side.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(side):
+                    self.step(**self.inputs)
+                torch.cuda.current_stream(self.device).wait_stream(side)
+                graph = torch.cuda.CUDAGraph()
+                with build.CaptureTally() as tally:
+                    with torch.cuda.graph(graph, pool=pool):
+                        self.outputs = self.step(**self.inputs)
+            torch.cuda.synchronize(self.device)
+            torch.cuda.empty_cache()   # the warm-up's blocks
+            self.graph, self.tally = graph, tally
+            self.capture_s = time.perf_counter() - t0
+            self.reserved_bytes = torch.cuda.memory_reserved(self.device) - reserved
 
     def __call__(self, **inputs) -> tuple:
         """Fill the named buffers and run the step; returns copies of its
@@ -84,7 +87,7 @@ class Bucket:
         fixed = {name for name, buf in self.inputs.items() if buf is not None}
         if set(inputs) != fixed:
             raise ValueError(f"the bucket takes exactly {sorted(fixed)}, got {sorted(inputs)}")
-        with torch.inference_mode():
+        with torch.inference_mode(), span("toucan.replay"):
             for name, value in inputs.items():
                 buf = self.inputs[name]
                 if callable(value):

@@ -31,6 +31,15 @@ enqueues a sentence without waiting for the device, and ``read_to_file``
 enqueues every sentence before it fetches the first.  A graph fixes the
 vocoder's mode and the precision policy at its capture:
 ``quantize_vocoder`` and setting ``matmul_precision`` clear the caches.
+
+Each layer of a request runs in a span (``utils.profiling.span``), free
+while nothing traces: ``toucan.call``, ``toucan.read_to_file`` or
+``toucan.batch`` with the request's id, then ``toucan.dispatch`` (a
+sentence), ``toucan.frontend``, ``toucan.stage`` (host padding and the
+copies to the device), ``toucan.replay`` and ``toucan.capture``
+(``infer.capture.Bucket``), ``toucan.fetch`` (each read of the device's
+outputs, and its wait) and ``toucan.write`` (the page's WAV).  ``counters``
+holds the operator's counts (``COUNTERS``).
 """
 
 from __future__ import annotations
@@ -54,8 +63,15 @@ from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator, calibrate_act_scales
 from toucan_tpu_torch.utils.device import check_policy, matmul_precision, resolve_device
+from toucan_tpu_torch.utils.profiling import span
 
 VOCODERS = {"hifigan": HiFiGANGenerator, "bigvgan": BigVGAN}
+# the operator's counters (``ToucanTTSInterface.counters``): requests on the
+# entry points, sentences, vocoder frames run (rows included) and delivered,
+# buckets made and those made outside ``precompile`` (a capture on a live
+# request on the card)
+COUNTERS = ("requests", "sentences", "frames_run", "frames_delivered", "buckets_built",
+            "buckets_built_live")
 PHONE_BUCKET = 32
 FRAMES_PER_PHONE = 16       # static upper bound for the upsampled length
 SAMPLES_PER_FRAME = 384     # 24 kHz out / 16 kHz-rate mel frames (hop 256)
@@ -133,6 +149,7 @@ class ToucanTTSInterface:
         self._vocoder_cache = {}     # mel -> wave buckets of _vocode
         self._graph_pool = None      # the memory pool all buckets' graphs capture into
         self._eager = False          # run every call eagerly, no bucket (comparisons)
+        self.counters = dict.fromkeys(COUNTERS, 0)
         self._matmul_precision = check_policy(matmul_precision)
         self.mesh = mesh
         self.longform_frames = longform_frames
@@ -220,11 +237,14 @@ class ToucanTTSInterface:
         self._vocoder_cache.clear()
         self._graph_pool = None
 
-    def _bucket(self, step, inputs: dict) -> Bucket:
+    def _bucket(self, step, inputs: dict, live: bool = True) -> Bucket:
         """A ``Bucket`` on the interface's device; on the card its graph
-        captures into the pool that the interface's other graphs share."""
+        captures into the pool that the interface's other graphs share.
+        ``live``: made for a request, not by ``precompile``."""
         if self.device.type == "cuda" and self._graph_pool is None:
             self._graph_pool = torch.cuda.graph_pool_handle()
+        self.counters["buckets_built"] += 1
+        self.counters["buckets_built_live"] += live
         return Bucket(step, inputs, self.device, self._graph_pool, self.matmul_precision)
 
     @torch.inference_mode()
@@ -320,7 +340,7 @@ class ToucanTTSInterface:
         wave = synthesize_longform(self._vocoder_call, after[0, :int(lens[0])], self.mesh)
         return torch.from_numpy(wave)[None], after, dur, pit, ene, lens
 
-    def _e2e_bucket(self, max_frames: int, inputs: dict) -> Bucket:
+    def _e2e_bucket(self, max_frames: int, inputs: dict, live: bool = True) -> Bucket:
         """The bucket of these inputs (device tensors or None, named as
         ``_e2e``'s arguments), made and, on the card, captured on first use.
         Its key holds all that a graph fixes: batch size, phone bucket,
@@ -332,7 +352,7 @@ class ToucanTTSInterface:
             specs = {k: None if v is None else (tuple(v.shape), v.dtype) for k, v in inputs.items()}
             specs["noise"] = ((text.shape[0], max_frames, self.config.mel_channels), torch.float32)
             self._e2e_cache[key] = self._bucket(
-                functools.partial(self._e2e, max_frames=max_frames), specs)
+                functools.partial(self._e2e, max_frames=max_frames), specs, live)
         return self._e2e_cache[key]
 
     def _run_e2e(self, max_frames: int, noise=None, **inputs):
@@ -367,7 +387,7 @@ class ToucanTTSInterface:
                 inputs.update(durations=self._tensor(np.ones((b, n_pad)), torch.int32),
                               pitch=self._tensor(np.zeros((b, n_pad, 1))),
                               energy=self._tensor(np.zeros((b, n_pad, 1))))
-            self._e2e_bucket(n_pad * FRAMES_PER_PHONE, inputs)
+            self._e2e_bucket(n_pad * FRAMES_PER_PHONE, inputs, live=False)
 
     @_under_policy
     @torch.inference_mode()
@@ -395,47 +415,63 @@ class ToucanTTSInterface:
     def _dispatch_call(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                        energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
                        durations=None, pitch=None, energy=None, input_is_phones=False,
-                       glow_noise=None):
+                       glow_noise=None, index=None):
         """Enqueue one sentence's text -> wave and return its device outputs
         (wave, after, durations, pitch, energy, mel_lengths) and its phone
         count, without waiting for the device, so that a caller can enqueue
-        several sentences before it fetches the first (``read_to_file``)."""
-        phones = self.text2phone.string_to_features(text, input_phonemes=input_is_phones)
-        n = len(phones)
-        n_pad = _round_up(n, PHONE_BUCKET)
-        text_arr = np.zeros((1, n_pad, phones.shape[1]), np.float32)
-        text_arr[0, :n] = phones
-        if durations is not None:
-            max_frames = _round_up(int(np.sum(durations)
-                                       * max(duration_scaling_factor, 1.0)) + 2, 64)
-        else:
-            max_frames = n_pad * FRAMES_PER_PHONE
+        several sentences before it fetches the first (``read_to_file``,
+        which gives the sentence's ``index`` to its span)."""
+        with span("toucan.dispatch", index=index):
+            with span("toucan.frontend"):
+                phones = self.text2phone.string_to_features(text, input_phonemes=input_is_phones)
+            with span("toucan.stage"):
+                n = len(phones)
+                n_pad = _round_up(n, PHONE_BUCKET)
+                text_arr = np.zeros((1, n_pad, phones.shape[1]), np.float32)
+                text_arr[0, :n] = phones
+                if durations is not None:
+                    max_frames = _round_up(int(np.sum(durations)
+                                               * max(duration_scaling_factor, 1.0)) + 2, 64)
+                else:
+                    max_frames = n_pad * FRAMES_PER_PHONE
 
-        def pad_override(x, dtype=torch.float32):
-            if x is None:
-                return None
-            x = np.asarray(x, np.float32)
-            out = np.zeros((1, n_pad) + x.shape[1:], np.float32)
-            out[0, :n] = x
-            return self._tensor(out, dtype)
+                def pad_override(x, dtype=torch.float32):
+                    if x is None:
+                        return None
+                    x = np.asarray(x, np.float32)
+                    out = np.zeros((1, n_pad) + x.shape[1:], np.float32)
+                    out[0, :n] = x
+                    return self._tensor(out, dtype)
 
-        noise = None
-        if glow_noise is not None:  # injected z (deterministic synthesis, parity tests)
-            glow_noise = np.asarray(glow_noise, np.float32)
-            z = np.zeros((1, max_frames, self.config.mel_channels), np.float32)
-            z[0, :len(glow_noise)] = glow_noise[:max_frames]
-            noise = self._tensor(z)
-        knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
-                 pause_duration_scaling_factor)
-        run = self._run_e2e
-        if self.mesh is not None and max_frames >= self.longform_frames:
-            run = self._longform
-        outs = run(max_frames, noise, text=self._tensor(text_arr),
-                   text_lengths=self._tensor([n], torch.int64), utt=self._utt(1),
-                   lang=self._lang([self.lang_id]), knobs=self._tensor(knobs),
-                   durations=pad_override(durations, torch.int32),
-                   pitch=pad_override(pitch), energy=pad_override(energy))
+                noise = None
+                if glow_noise is not None:  # injected z (deterministic synthesis, parity tests)
+                    glow_noise = np.asarray(glow_noise, np.float32)
+                    z = np.zeros((1, max_frames, self.config.mel_channels), np.float32)
+                    z[0, :len(glow_noise)] = glow_noise[:max_frames]
+                    noise = self._tensor(z)
+                knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
+                         pause_duration_scaling_factor)
+                inputs = dict(text=self._tensor(text_arr),
+                              text_lengths=self._tensor([n], torch.int64), utt=self._utt(1),
+                              lang=self._lang([self.lang_id]), knobs=self._tensor(knobs),
+                              durations=pad_override(durations, torch.int32),
+                              pitch=pad_override(pitch), energy=pad_override(energy))
+            run = self._run_e2e
+            if self.mesh is not None and max_frames >= self.longform_frames:
+                run = self._longform
+            outs = run(max_frames, noise, **inputs)
+        self.counters["sentences"] += 1
+        self._count_run(outs[0])
         return outs, n
+
+    def _request(self) -> int:
+        """Count a request on an entry point; returns its id."""
+        self.counters["requests"] += 1
+        return self.counters["requests"]
+
+    def _count_run(self, waves):
+        """Count the vocoder frames of a step's (rows, samples) waves."""
+        self.counters["frames_run"] += waves.shape[0] * (waves.shape[-1] // SAMPLES_PER_FRAME)
 
     @_under_policy
     def __call__(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
@@ -446,26 +482,31 @@ class ToucanTTSInterface:
         """The 24 kHz wave; with ``return_duration_pitch_energy`` also the
         per-phone durations, pitch and energy, with ``return_plot_as_filepath``
         (and not the former) the path of a PNG of ``plot_synthesis``."""
-        (wave, after, dur, pit, ene, lens), n = self._dispatch_call(
-            text, duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
-            pause_duration_scaling_factor, durations, pitch, energy, input_is_phones,
-            glow_noise)
-        mel_len = int(lens[0])
-        wave = wave[0, :mel_len * SAMPLES_PER_FRAME].cpu().numpy()
-        if return_duration_pitch_energy:
-            return (wave, dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy(),
-                    ene[0, :n, 0].cpu().numpy())
-        if return_plot_as_filepath:
-            if input_is_phones:
-                labels = self.text2phone.postprocess_phoneme_string(
-                    text, for_feature_extraction=False, for_plot_labels=True)
-            else:
-                labels = self.text2phone.get_phone_string(text, for_plot_labels=True)
-            path = self.plot_synthesis(after[0, :mel_len].cpu().numpy(),
-                                       dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy(),
-                                       labels)
-            return wave, path
-        return wave
+        with span("toucan.call", self._request()):
+            (wave, after, dur, pit, ene, lens), n = self._dispatch_call(
+                text, duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
+                pause_duration_scaling_factor, durations, pitch, energy, input_is_phones,
+                glow_noise)
+            with span("toucan.fetch"):
+                mel_len = int(lens[0])
+                wave = wave[0, :mel_len * SAMPLES_PER_FRAME].cpu().numpy()
+                if return_duration_pitch_energy:
+                    out = (wave, dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy(),
+                           ene[0, :n, 0].cpu().numpy())
+                elif return_plot_as_filepath:
+                    mel, dur, pit = (after[0, :mel_len].cpu().numpy(), dur[0, :n].cpu().numpy(),
+                                     pit[0, :n, 0].cpu().numpy())
+            self.counters["frames_delivered"] += mel_len
+            if return_duration_pitch_energy:
+                return out
+            if return_plot_as_filepath:
+                if input_is_phones:
+                    labels = self.text2phone.postprocess_phoneme_string(
+                        text, for_feature_extraction=False, for_plot_labels=True)
+                else:
+                    labels = self.text2phone.get_phone_string(text, for_plot_labels=True)
+                return wave, self.plot_synthesis(mel, dur, pit, labels)
+            return wave
 
     def plot_synthesis(self, mel, durations, pitch, labels, path=None):
         """Spectrogram + prosody overview plot (reference:
@@ -520,30 +561,39 @@ class ToucanTTSInterface:
         waves, converted on the device (a quarter of the bytes to fetch)."""
         b = len(texts)
         langs = languages if languages is not None else [None] * b
-        frontends = [self.text2phone if lg is None else self._frontend(lg) for lg in langs]
-        phones = [fe.string_to_features(tx, input_phonemes=input_is_phones)
-                  for fe, tx in zip(frontends, texts)]
-        lengths = np.asarray([len(p) for p in phones], np.int64)
-        n_pad = _round_up(int(lengths.max()), PHONE_BUCKET)
-        text_arr = np.zeros((b, n_pad, phones[0].shape[1]), np.float32)
-        for i, p in enumerate(phones):
-            text_arr[i, :len(p)] = p
-        max_frames = n_pad * FRAMES_PER_PHONE
-        if utterance_embeddings is None:
-            utt = self._utt(b)
-        else:
-            utt = self._tensor(np.asarray(utterance_embeddings, np.float32).reshape(b, -1))
-        knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
-                 pause_duration_scaling_factor)
-        waves, _, _, _, _, lens = self._run_e2e(
-            max_frames, text=self._tensor(text_arr), text_lengths=self._tensor(lengths, torch.int64),
-            utt=utt, lang=self._lang([self.lang_id if lg is None else language_id(lg)
-                                      for lg in langs]),
-            knobs=self._tensor(knobs))
-        if return_pcm16:
-            waves = torch.round(waves.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
-        waves, lens = waves.cpu().numpy(), lens.cpu().numpy()
-        return [waves[i, :int(lens[i]) * SAMPLES_PER_FRAME] for i in range(b)]
+        with span("toucan.batch", self._request()):
+            with span("toucan.frontend"):
+                frontends = [self.text2phone if lg is None else self._frontend(lg)
+                             for lg in langs]
+                phones = [fe.string_to_features(tx, input_phonemes=input_is_phones)
+                          for fe, tx in zip(frontends, texts)]
+            with span("toucan.stage"):
+                lengths = np.asarray([len(p) for p in phones], np.int64)
+                n_pad = _round_up(int(lengths.max()), PHONE_BUCKET)
+                text_arr = np.zeros((b, n_pad, phones[0].shape[1]), np.float32)
+                for i, p in enumerate(phones):
+                    text_arr[i, :len(p)] = p
+                max_frames = n_pad * FRAMES_PER_PHONE
+                if utterance_embeddings is None:
+                    utt = self._utt(b)
+                else:
+                    utt = self._tensor(np.asarray(utterance_embeddings, np.float32).reshape(b, -1))
+                knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
+                         pause_duration_scaling_factor)
+                inputs = dict(text=self._tensor(text_arr),
+                              text_lengths=self._tensor(lengths, torch.int64), utt=utt,
+                              lang=self._lang([self.lang_id if lg is None else language_id(lg)
+                                               for lg in langs]),
+                              knobs=self._tensor(knobs))
+            waves, _, _, _, _, lens = self._run_e2e(max_frames, **inputs)
+            self.counters["sentences"] += b
+            self._count_run(waves)
+            if return_pcm16:
+                waves = torch.round(waves.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
+            with span("toucan.fetch"):
+                waves, lens = waves.cpu().numpy(), lens.cpu().numpy()
+            self.counters["frames_delivered"] += int(lens.sum())
+            return [waves[i, :int(lens[i]) * SAMPLES_PER_FRAME] for i in range(b)]
 
     # ----------------------------------------------------------- file I/O
 
@@ -557,26 +607,32 @@ class ToucanTTSInterface:
         Every sentence is enqueued before the first is fetched, so the
         host's work on one overlaps the device's on the ones before it.
         Returns the samples (int16 in the compatibility mode)."""
-        inflight = []
-        for text, durations, pitch, energy in itertools.zip_longest(
-                text_list, dur_list or [], pitch_list or [], energy_list or []):
-            if not text or not text.strip():
-                continue
-            if not silent:
-                print(f"Now synthesizing: {text}")
-            outs, _ = self._dispatch_call(
-                text, duration_scaling_factor=duration_scaling_factor,
-                pitch_variance_scale=pitch_variance_scale,
-                energy_variance_scale=energy_variance_scale, durations=durations, pitch=pitch,
-                energy=energy, input_is_phones=input_is_phones)
-            inflight.append((outs[0], outs[5]))
-        silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
-        pieces = [silence]
-        for wave, lens in inflight:
-            pieces += [wave[0, :int(lens[0]) * SAMPLES_PER_FRAME].cpu().numpy(), silence]
-        wav, sr = _compatible(np.concatenate(pieces), increased_compatibility_mode)
-        write_wav(file_location, wav, sr)
-        return wav
+        with span("toucan.read_to_file", self._request()):
+            inflight = []
+            for text, durations, pitch, energy in itertools.zip_longest(
+                    text_list, dur_list or [], pitch_list or [], energy_list or []):
+                if not text or not text.strip():
+                    continue
+                if not silent:
+                    print(f"Now synthesizing: {text}")
+                outs, _ = self._dispatch_call(
+                    text, duration_scaling_factor=duration_scaling_factor,
+                    pitch_variance_scale=pitch_variance_scale,
+                    energy_variance_scale=energy_variance_scale, durations=durations,
+                    pitch=pitch, energy=energy, input_is_phones=input_is_phones,
+                    index=len(inflight))
+                inflight.append((outs[0], outs[5]))
+            silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
+            pieces = [silence]
+            for wave, lens in inflight:
+                with span("toucan.fetch"):
+                    mel_len = int(lens[0])
+                    pieces += [wave[0, :mel_len * SAMPLES_PER_FRAME].cpu().numpy(), silence]
+                self.counters["frames_delivered"] += mel_len
+            with span("toucan.write"):
+                wav, sr = _compatible(np.concatenate(pieces), increased_compatibility_mode)
+                write_wav(file_location, wav, sr)
+            return wav
 
     def read_aloud(self, text, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                    energy_variance_scale=1.0, blocking=False, increased_compatibility_mode=False,
