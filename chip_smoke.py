@@ -1369,8 +1369,8 @@ def drive(name, fn, iface, per_call, launches, n=1, waves_of=lambda out: [out], 
     """One main-path run: every count to 0, drive, synchronize, read the
     counts.  ``per_call`` {kernel: launches of one synthesis}; the run makes
     ``n`` syntheses and one warm-up for each bucket of ``iface`` that it
-    made (a bucket's first use, where ``precompile`` did not make it), and
-    every other kernel must stay at 0.  ``warm``: the number of buckets the
+    made (a bucket's first use, where ``precompile`` did not make it:
+    ``warm_launches``), and every other kernel must stay at 0.  ``warm``: the number of buckets the
     run must make (0 for a call after ``precompile`` or after its bucket's
     first use), None where it is a first use.  ``bucketed``: fn goes
     through the interface's buckets (not ``quantize_vocoder``'s
@@ -1387,7 +1387,8 @@ def drive(name, fn, iface, per_call, launches, n=1, waves_of=lambda out: [out], 
     got = {k: w.launches for k, w in WRAPPERS.items()}
     for k, c in got.items():
         launches[k] += c
-    warm, warm_want = sum(id(b) not in before for b in buckets(iface)), warm
+    made = [b for b in buckets(iface) if id(b) not in before]
+    warm, warm_want = len(made), warm
     how = ("eager" if iface._eager or not bucketed else
            f"{warm} bucket(s) warmed up and captured, counted" if warm else "graph replays")
     waves = waves_of(out)
@@ -1397,7 +1398,10 @@ def drive(name, fn, iface, per_call, launches, n=1, waves_of=lambda out: [out], 
                 + " ".join(f"{k}_launches={c}" for k, c in got.items()))
     if warm_want is not None and warm != warm_want:
         raise AssertionError(f"{name}: made {warm} bucket(s), expected {warm_want}")
-    expect = per_synthesis(n + warm, **per_call)
+    expect = per_synthesis(n, **per_call)
+    for b in made:
+        for k, c in per_synthesis(1, **warm_launches(iface, b, per_call)).items():
+            expect[k] = expect.get(k, 0) + c
     want = {k: expect.get(k, 0) for k in WRAPPERS}
     if got != want:
         raise AssertionError(f"{name}: expected launches {want}, got {got}")
@@ -1409,6 +1413,33 @@ def drive(name, fn, iface, per_call, launches, n=1, waves_of=lambda out: [out], 
 
 def buckets(iface):
     return [*iface._e2e_cache.values(), *iface._vocoder_cache.values()]
+
+
+def warm_launches(iface, bucket, per_call):
+    """The launches of a new bucket's warm-up, of ``per_call`` (one
+    synthesis): the vocoder's in a ``_vocoder_cache`` bucket, the acoustic
+    model's (K1) in an ``_e2e_cache`` bucket of a cut step, all of them in
+    a fused step's (a vocoder without receptive frames)."""
+    if any(bucket is b for b in iface._vocoder_cache.values()):
+        return {k: c for k, c in per_call.items() if k != "k1"}
+    if iface._reach is not None:
+        return {k: c for k, c in per_call.items() if k == "k1"}
+    return per_call
+
+
+def call_graphs(iface, text):
+    """The graphs a steady ``__call__`` of ``text`` replays: its step's
+    ``_e2e_cache`` bucket and, where the vocoder is cut, the
+    ``_vocoder_cache`` bucket of its mel length (from its durations, which
+    the noise does not move)."""
+    n_pad = _round_up(len(iface.text2phone.string_to_features(text)), PHONE_BUCKET)
+    max_frames = n_pad * FRAMES_PER_PHONE
+    graphs = [iface._e2e_cache[(1, n_pad, max_frames, False, False, False)].graph]
+    if iface._reach is not None:
+        (*_, lens), _ = iface._dispatch_call(text)
+        frames = iface._cut_frames(int(lens[0]), max_frames)
+        graphs.append(iface._vocoder_cache[(1, frames)].graph)
+    return graphs
 
 
 def per_synthesis(n, **kernels):
@@ -1640,6 +1671,12 @@ def phase_graphs(iface, per_call, label, launches):
         log("graphs", f"{label}: precompile bucket (B, phones, frames, durations, pitch, "
                       f"energy) = {key}: warm-up and capture {bucket.capture_s * 1e3:.1f} ms, "
                       f"its capture added {bucket.reserved_bytes / 2 ** 20:.1f} MiB to the pool")
+    voc = iface._vocoder_cache
+    if voc:
+        log("graphs", f"{label}: precompile made {len(voc)} vocoder buckets (B, frames) "
+                      f"{min(voc)} .. {max(voc)}: warm-up and capture "
+                      f"{sum(b.capture_s for b in voc.values()):.2f} s in all, their captures "
+                      f"added {sum(b.reserved_bytes for b in voc.values()) / 2 ** 20:.1f} MiB")
     log("graphs", f"{label}: precompile of phone buckets {phone_buckets}: the interface's graphs "
                   f"hold {(torch.cuda.memory_reserved() - reserved) / 2 ** 20:.1f} MiB "
                   f"in all (one pool)")
@@ -1675,7 +1712,7 @@ def phase_graphs(iface, per_call, label, launches):
     (_, after, *_, lens), _ = iface._dispatch_call(LONG_TEXT, glow_noise=z)
     mel = after[0, :int(lens[0])].cpu().numpy()
     per_vocoder = {k: c for k, c in per_call.items() if k != "k1"}
-    for name, warm in (("first", 1), ("steady", 0)):
+    for name, warm in (("first", None), ("steady", 0)):
         wave = drive(f"{label} _vocode of the call's mel ({name})", lambda: iface._vocode(mel),
                      iface, per_vocoder, launches, warm=warm)
     want = drive(f"{label} _vocode, eager", lambda: iface._vocode(mel), eager_mode(iface, True),
@@ -1695,10 +1732,9 @@ def phase_graphs(iface, per_call, label, launches):
                   f"{GRAPH_ROUNDS}: " + "; ".join(
                       f"{k} median {1e3 * np.median(v):.2f} ms ("
                       + ", ".join(f"{1e3 * t:.2f}" for t in v) + ")" for k, v in times.items()))
-    bucket = iface._e2e_cache[(1, _round_up(n, PHONE_BUCKET),
-                               _round_up(n, PHONE_BUCKET) * FRAMES_PER_PHONE, False, False, False)]
-    replay_ms, call_ms = time_ms(bucket.graph.replay, 5), 1e3 * np.median(times["graph"])
-    log("graphs", f"{label}: the bucket's graph replayed alone takes {replay_ms:.2f} ms of device "
+    replay_ms = replay_ms_of(call_graphs(iface, LONG_TEXT))
+    call_ms = 1e3 * np.median(times["graph"])
+    log("graphs", f"{label}: the call's graphs replayed alone take {replay_ms:.2f} ms of device "
                   f"time (CUDA events): the device is idle {100 * (1 - replay_ms / call_ms):.1f}% "
                   f"of the median graph call ({call_ms:.2f} ms)")
     profiled_call(iface, launches, per_call, f"{label} graph")
@@ -1890,24 +1926,21 @@ def compare_bf16(label, card16, card32, cpu16, cpu32):
                 f"tolerance {BF16_FACTOR} x the CPU's distance: " + "; ".join(msg))
 
 
-def replay_ms(bucket):
-    """Device ms of one replay of a bucket's graph (CUDA events)."""
-    return time_ms(bucket.graph.replay, 5)
+def replay_ms_of(graphs):
+    """Device ms of one replay of each of ``graphs`` in turn (CUDA events)."""
+    return time_ms(lambda: [g.replay() for g in graphs], 5)
 
 
 def graph_calls_in_turns(phase, label, runs):
     """The steady graph ``__call__`` of each of ``runs`` ({name: interface},
     every bucket made) on LONG_TEXT in turns (a, b, b, a) x GRAPH_ROUNDS,
-    and each bucket's graph replayed alone by CUDA events."""
+    and the graphs of each one's call replayed alone by CUDA events."""
     names = list(runs)
-    n = len(next(iter(runs.values())).text2phone.string_to_features(LONG_TEXT))
-    key = (1, _round_up(n, PHONE_BUCKET), _round_up(n, PHONE_BUCKET) * FRAMES_PER_PHONE,
-           False, False, False)
     for it in runs.values():
         it(LONG_TEXT)  # the bucket, made here where an earlier phase dropped it
     times = in_turns({k: (lambda it=it: steady(it, lambda: it(LONG_TEXT))) for k, it in
                       runs.items()}, names + names[::-1], GRAPH_ROUNDS)
-    replay = {k: replay_ms(it._e2e_cache[key]) for k, it in runs.items()}
+    replay = {k: replay_ms_of(call_graphs(it, LONG_TEXT)) for k, it in runs.items()}
     log(phase, f"{label}: steady graph __call__ in turns ({', '.join(names + names[::-1])}) "
                f"x {GRAPH_ROUNDS}: " + "; ".join(
                    f"{k} median {1e3 * np.median(v):.2f} ms ("

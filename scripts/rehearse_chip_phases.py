@@ -119,7 +119,7 @@ def main():
         return ToucanTTSInterface(tts_sd, voc_sd, config=config or TINY, vocoder=vocoder,
                                   device="cpu", dtype=dtype, **kw)
     chip_smoke.ToucanTTSInterface = tiny_interface
-    chip_smoke.replay_ms = lambda bucket: 0.0
+    chip_smoke.replay_ms_of = lambda graphs: 0.0
     chip_smoke.fastspeech2_config = lambda: fastspeech2_config(enc_layers=1, dec_layers=1)
     chip_smoke.HiFiGANGenerator = lambda: HiFiGANGenerator(channels=64)
     chip_smoke.interface_from_torch = lambda *a, **k: load.interface_from_torch(

@@ -146,6 +146,20 @@ def test_precompile_makes_the_largest_bucket_first(port):
     port._e2e_cache.clear()
 
 
+def test_precompile_makes_every_vocoder_bucket_a_step_reaches(port):
+    """The vocoder's frame buckets step by 64 frames to 1024 and by 512
+    above, up to the frames decoded; ``precompile`` makes every one that a
+    step of its phone buckets can reach, the largest first."""
+    port._e2e_cache.clear()
+    port._vocoder_cache.clear()
+    port.precompile(phone_buckets=(32, 96), batch_sizes=(1,))
+    assert list(port._vocoder_cache) == [(1, f) for f in [1536, *range(1024, 0, -64)]]
+    assert {(1, port._cut_frames(n, m)) for m in (512, 1536)
+            for n in range(m + 1)} == set(port._vocoder_cache)
+    port._e2e_cache.clear()
+    port._vocoder_cache.clear()
+
+
 def test_bucket_calls_with_new_knobs_and_noise_match_eager(port):
     """Two calls in one bucket, each with other knobs and other injected
     noise, each equal its own eager call: no static buffer goes stale."""
@@ -219,7 +233,7 @@ def test_vocode_bucket_equals_eager(port):
     mel = np.random.RandomState(14).randn(70, 80).astype(np.float32)
     got = port._vocode(mel)
     again = port._vocode(mel[:66])
-    assert list(port._vocoder_cache) == [128]
+    assert list(port._vocoder_cache) == [(1, 128)]
     np.testing.assert_array_equal(got, eager(port, lambda: port._vocode(mel)))
     np.testing.assert_array_equal(again, eager(port, lambda: port._vocode(mel[:66])))
 

@@ -14,13 +14,17 @@ import pytest
 import torch
 
 import jax.numpy as jnp
+from torch import nn
 
 from toucan_tpu.infer.interface import ToucanTTSInterface as JaxInterface
 from toucan_tpu.models.toucan_tts import ToucanTTS as JaxToucanTTS
 from toucan_tpu.models.toucan_tts import ToucanTTSConfig as JaxConfig
 from toucan_tpu.models.vocoders.hifigan import HiFiGANGenerator as JaxHiFiGAN
-from toucan_tpu_torch.infer.interface import ToucanTTSInterface
-from toucan_tpu_torch.models.toucan_tts import ToucanTTSConfig
+from toucan_tpu_torch.frontend.inventory import feature_index
+from toucan_tpu_torch.infer.interface import (SAMPLES_PER_FRAME, SENTENCE_JOIN_SILENCE,
+                                              ToucanTTSInterface)
+from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
+from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 from toucan_tpu_torch.utils.device import f32_precision
 from toucan_tpu_torch.weights import hifigan_from_jax, toucan_tts_from_jax
@@ -228,3 +232,99 @@ def test_call_pins_ieee_under_the_newer_precision_api(pair):
             s.fp32_precision = value
     assert seen == [["ieee"] * 3]
     cudnn.allow_tf32, matmul.allow_tf32  # the legacy flags read again
+
+
+# ----------------------------------------------------- the vocoder's frame cut
+
+def port_with(vocoder, glow=True):
+    """A port interface on seeded torch weights (no JAX) with this vocoder
+    module; ``glow=False``: no post-flow, so a mel keeps an odd length."""
+    torch.manual_seed(0)
+    config = ToucanTTSConfig(**TINY, use_postflow=glow)
+    return ToucanTTSInterface(ToucanTTS(config).state_dict(), vocoder.state_dict(), config=config,
+                              vocoder=vocoder, default_embedding=np.zeros(64, np.float32),
+                              language="en", use_g2p=False, device="cpu")
+
+
+def step_inputs(port, frames: int):
+    """``_run_e2e``'s inputs for IPA with durations that sum to ``frames``
+    (the word boundaries take none)."""
+    phones = port.text2phone.string_to_features(IPA, input_phonemes=True)
+    text = np.zeros((1, 32, phones.shape[1]), np.float32)
+    text[0, :len(phones)] = phones
+    speaking = np.flatnonzero(phones[:, feature_index()["word-boundary"]] != 1)
+    durations = np.zeros((1, 32), np.int32)
+    durations[0, speaking] = 1
+    durations[0, speaking[0]] += frames - len(speaking)
+    return dict(text=torch.tensor(text), text_lengths=torch.tensor([len(phones)]),
+                utt=port._utt(1), lang=torch.tensor([[port.lang_id]]),
+                knobs=torch.ones(4), durations=torch.tensor(durations), pitch=None, energy=None)
+
+
+@pytest.mark.parametrize("make", [lambda: HiFiGANGenerator(channels=64),
+                                  lambda: BigVGAN(channels=32)], ids=["hifigan", "bigvgan"])
+def test_cut_step_equals_the_whole_padded_mel(make):
+    """A step whose mel ends R frames before its frame bucket (the least
+    margin the cut leaves, R the vocoder's receptive frames) vocodes that
+    bucket alone, in its bucket and eagerly alike, and delivers the
+    samples of the whole padded mel vocoded (``_e2e``)."""
+    port = port_with(make(), glow=False)
+    reach = port.vocoder.receptive_frames
+    length = 128 - reach
+    inputs = step_inputs(port, length)
+    noise = torch.zeros(1, 512, 80)
+    wave, after, dur, _, _, lens = port._run_e2e(512, noise, **inputs)
+    assert int(lens[0]) == length and wave.shape == (1, 128 * SAMPLES_PER_FRAME)
+    assert list(port._vocoder_cache) == [(1, 128)] and port.counters["steps_uncut"] == 0
+    assert after.shape[1] == 512
+    port._eager = True
+    eager = port._run_e2e(512, noise, **inputs)
+    port._eager = False
+    np.testing.assert_array_equal(wave.numpy(), eager[0].numpy())
+    whole, *_ = port._e2e(max_frames=512, noise=noise, **inputs)
+    assert whole.shape == (1, 512 * SAMPLES_PER_FRAME)
+    keep = length * SAMPLES_PER_FRAME
+    np.testing.assert_allclose(wave[0, :keep].numpy(), whole[0, :keep].numpy(), atol=1e-5)
+
+
+class Foreign(nn.Module):
+    """A vocoder module that gives no receptive frames."""
+
+    def __init__(self):
+        super().__init__()
+        self.inner = HiFiGANGenerator(channels=32)
+
+    def forward(self, mel):
+        return self.inner(mel)
+
+
+@pytest.mark.parametrize("make", [lambda: HiFiGANGenerator(channels=64, imcol_mode="int8"),
+                                  Foreign], ids=["imcol-int8", "foreign"])
+def test_step_stays_uncut_without_receptive_frames(make):
+    """K4's int8 stages (their scales see every row of a window) and a
+    vocoder module without ``receptive_frames`` vocode every decoded
+    frame in one fused step, and ``steps_uncut`` counts each such step."""
+    port = port_with(make())
+    assert port._reach is None
+    wave, *_, lens = port._run_e2e(512, torch.zeros(1, 512, 80), **step_inputs(port, 40))
+    assert int(lens[0]) == 40 and wave.shape == (1, 512 * SAMPLES_PER_FRAME)
+    assert port.counters["steps_uncut"] == 1 and not port._vocoder_cache
+    (key, bucket), = port._e2e_cache.items()
+    assert key == (1, 32, 512, True, False, False) and bucket.step.func == port._e2e
+
+
+def test_read_to_file_wav_equals_the_calls_joined(pair, tmp_path):
+    """The WAV of a page holds the ``__call__`` waves of its sentences on
+    the same noise, joined by the silences: each sentence's vocoder step,
+    enqueued before the next sentence's acoustic step, is fetched intact."""
+    _, port = pair
+    path = tmp_path / "page.wav"
+    port.generator.manual_seed(21)
+    port.read_to_file(TEXTS, path, input_is_phones=True)
+    port.generator.manual_seed(21)
+    silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
+    joined = np.concatenate([silence] + [x for t in TEXTS
+                                         for x in (port(t, input_is_phones=True), silence)])
+    with wave_mod.open(str(path), "rb") as f:
+        got = np.frombuffer(f.readframes(f.getnframes()), np.int16)
+    np.testing.assert_array_equal(got, (np.clip(joined, -1, 1) * 32767).astype(np.int16))

@@ -16,7 +16,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from toucan_tpu_torch.infer.interface import (FRAMES_PER_PHONE, PHONE_BUCKET, SAMPLES_PER_FRAME,
-                                              SENTENCE_JOIN_SILENCE, ToucanTTSInterface)
+                                              SENTENCE_JOIN_SILENCE, ToucanTTSInterface,
+                                              _frame_bucket)
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 from toucan_tpu_torch.utils import profiling
@@ -29,8 +30,10 @@ TINY = dict(adim=32, aheads=2, enc_layers=1, enc_units=64, dec_layers=1, dec_uni
             pitch_chans=16, energy_chans=16, glow_blocks=2, glow_hidden=16,
             utt_embed_dim=64, lang_embs=100)
 TEXTS = ["~hɛlˈoʊ wˈɜːld~#", "~ə ʃˈɔːɹt wˈʌn~#"]
-DISPATCH = ("toucan.dispatch", [("toucan.frontend", []), ("toucan.stage", []),
-                                ("toucan.replay", [])])
+# a step: the acoustic half's replay, the read of its mel lengths, the
+# vocoder's replay
+STEP = [("toucan.replay", []), ("toucan.fetch", []), ("toucan.replay", [])]
+DISPATCH = ("toucan.dispatch", [("toucan.frontend", []), ("toucan.stage", []), *STEP])
 
 
 def make_interface():
@@ -86,7 +89,7 @@ def test_synthesize_batch_spans(iface):
     with SpanLog() as log:
         iface.synthesize_batch(TEXTS, input_is_phones=True)
     assert tree(log.spans) == [("toucan.batch", [("toucan.frontend", []), ("toucan.stage", []),
-                                                 ("toucan.replay", []), ("toucan.fetch", [])])]
+                                                 *STEP, ("toucan.fetch", [])])]
     assert_one_request(iface, log)
 
 
@@ -129,15 +132,22 @@ def test_span_is_the_shared_noop_while_nothing_traces(iface, monkeypatch):
 def test_counters_follow_frames_and_live_buckets(tmp_path):
     iface = make_interface()
     iface.precompile(phone_buckets=(PHONE_BUCKET,))
-    assert iface.counters["buckets_built"] == 1 and iface.counters["buckets_built_live"] == 0
+    # the text -> mel bucket and the vocoder's frame buckets 64 .. 512
+    assert iface.counters["buckets_built"] == 1 + 8 and iface.counters["buckets_built_live"] == 0
     one = iface(TEXTS[0], input_is_phones=True)
     page = iface.read_to_file(TEXTS, tmp_path / "page.wav", input_is_phones=True)
     assert iface.counters["buckets_built_live"] == 0
-    batch = iface.synthesize_batch(TEXTS, input_is_phones=True)   # a batch of 2: a new bucket
-    assert iface.counters["buckets_built"] == 2 and iface.counters["buckets_built_live"] == 1
+    batch = iface.synthesize_batch(TEXTS, input_is_phones=True)   # a batch of 2: new buckets
+    assert iface.counters["buckets_built"] == 9 + 2 and iface.counters["buckets_built_live"] == 2
     delivered = (len(one) + len(page) - 3 * SENTENCE_JOIN_SILENCE
                  + sum(len(w) for w in batch)) // SAMPLES_PER_FRAME
-    bucket_frames = PHONE_BUCKET * FRAMES_PER_PHONE
-    assert iface.counters == dict(requests=3, sentences=5, frames_run=5 * bucket_frames,
-                                  frames_delivered=delivered, buckets_built=2,
-                                  buckets_built_live=1)
+    # each text's frames (they follow from its durations, not from the noise)
+    a, b = (len(w) // SAMPLES_PER_FRAME for w in batch)
+    assert delivered == 2 * (a + b) + a
+    # the vocoder runs the frame bucket of the longest row and its receptive frames
+    cut = [_frame_bucket(n + iface.vocoder.receptive_frames) for n in (a, b)]
+    assert max(cut) < PHONE_BUCKET * FRAMES_PER_PHONE
+    assert iface.counters == dict(requests=3, sentences=5,
+                                  frames_run=cut[0] + sum(cut) + 2 * max(cut),
+                                  frames_delivered=delivered, buckets_built=11,
+                                  buckets_built_live=2, steps_uncut=0)

@@ -29,7 +29,7 @@ from torch import nn
 from toucan_tpu_torch.kernels.aliasfree import alias_free_snake
 from toucan_tpu_torch.models.vocoders.hifigan import _at_least_f32
 from toucan_tpu_torch.nn import alias_free
-from toucan_tpu_torch.nn.convolution import same_conv
+from toucan_tpu_torch.nn.convolution import conv_reach, same_conv
 
 
 class SnakeBeta(nn.Module):
@@ -71,6 +71,13 @@ class AMPBlock(nn.Module):
             x = x + c2(self.activations[2 * i + 1](xt, differentiable))
         return x
 
+    def reach(self, q: int) -> int:
+        """The last input index that output index ``q`` reads
+        (``nn/convolution.py::conv_reach``)."""
+        for c1, c2 in zip(self.convs1, self.convs2):
+            q = alias_free.snake_reach(conv_reach(c1, alias_free.snake_reach(conv_reach(c2, q))))
+        return q
+
 
 class BigVGAN(nn.Module):
     def __init__(self, num_mels: int = 80, channels: int = 512,
@@ -100,6 +107,20 @@ class BigVGAN(nn.Module):
     def dtype(self) -> torch.dtype:
         """The compute dtype: that of the parameters."""
         return self.conv_pre.weight.dtype
+
+    @property
+    def receptive_frames(self) -> int:
+        """R: the mel frames past a length L that the wave's first 384 L
+        samples read, L .. L + R - 1, from the convs' and the resamplers'
+        own geometry (18 for the released one), so a mel cut at L + R
+        frames or more gives those samples unchanged: what K5's replicate
+        edges put past the cut reaches none of them."""
+        q = alias_free.snake_reach(conv_reach(self.conv_post, -1))
+        n = self.n_blocks
+        for i in reversed(range(len(self.ups))):
+            q = max(block.reach(q) for block in self.resblocks[i * n:(i + 1) * n])
+            q = conv_reach(self.ups[i][0], q)
+        return conv_reach(self.conv_pre, q) + 1
 
     def forward(self, c, return_intermediates: bool = False, differentiable: bool = False):
         """c (B, T, 80) -> wave (B, 384*T, 1) f32; with

@@ -56,7 +56,7 @@ from toucan_tpu_torch.kernels.imcol import (ImcolStage, imcol_fold, imcol_stage,
 from toucan_tpu_torch.kernels.resstack import StageWeights, hifigan_stage, pack_stage
 from toucan_tpu_torch.kernels.stage import (MODES, QuantizedStage, calibrate_stage_scales,
                                             quantize_stage, quantized_stage)
-from toucan_tpu_torch.nn.convolution import same_conv
+from toucan_tpu_torch.nn.convolution import conv_reach, same_conv
 
 
 def _at_least_f32(x):
@@ -81,6 +81,13 @@ class ResidualStack(nn.Module):
         for c1, c2 in zip(self.convs1, self.convs2):
             x = x + c2(c1(x))
         return x
+
+    def reach(self, q: int) -> int:
+        """The last input index that output index ``q`` reads
+        (``nn/convolution.py::conv_reach``)."""
+        for c1, c2 in zip(self.convs1, self.convs2):
+            q = conv_reach(c1[1], conv_reach(c2[1], q))
+        return q
 
 
 class HiFiGANGenerator(nn.Module):
@@ -185,6 +192,22 @@ class HiFiGANGenerator(nn.Module):
         ``imcol_stages`` (the f32 mode is the exact stage, K2)."""
         return (self.imcol_mode in MODES and i in self.imcol_stages
                 and self.upsamples[i][1].out_channels <= 128)
+
+    @property
+    def receptive_frames(self) -> Optional[int]:
+        """R: the mel frames past a length L that the wave's first 384 L
+        samples read, L .. L + R - 1, from the convs' own geometry (13 for
+        the released one), so a mel cut at L + R frames or more gives those
+        samples unchanged.  None where K4 runs a stage in int8: its scales
+        are the max over every row of a window, the rows past L too."""
+        if self.imcol_mode == "int8" and any(map(self.runs_imcol, range(len(self.upsamples)))):
+            return None
+        q = conv_reach(self.output_conv[1], -1)   # the last sample before a frame boundary
+        n = len(self.resblock_kernel_sizes)
+        for i in reversed(range(len(self.upsamples))):
+            q = max(block.reach(q) for block in self.blocks[i * n:(i + 1) * n])
+            q = conv_reach(self.upsamples[i][1], q)
+        return conv_reach(self.input_conv, q) + 1
 
     def forward(self, c, act_scales=None, return_intermediates: bool = False,
                 differentiable: bool = False):

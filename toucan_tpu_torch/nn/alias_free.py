@@ -54,7 +54,7 @@ def upsample2(x: torch.Tensor) -> torch.Tensor:
     c = x.shape[1]
     pad = TAPS // 2 - 1
     crop = pad * 2 + (TAPS - 2) // 2
-    filt = resample_filter(x.device).expand(c, 1, TAPS)
+    filt = resample_filter(x.device).to(x.dtype).expand(c, 1, TAPS)
     y = F.conv_transpose1d(F.pad(x, (pad, pad), mode="replicate"), filt, stride=2, groups=c)
     return 2.0 * y[..., crop:y.shape[-1] - crop]
 
@@ -62,9 +62,18 @@ def upsample2(x: torch.Tensor) -> torch.Tensor:
 def downsample2(x: torch.Tensor) -> torch.Tensor:
     """(B, C, 2T) -> (B, C, T): sinc low-pass and decimation, replicate edges."""
     c = x.shape[1]
-    filt = resample_filter(x.device).expand(c, 1, TAPS)
+    filt = resample_filter(x.device).to(x.dtype).expand(c, 1, TAPS)
     x = F.pad(x, (TAPS // 2 - 1, TAPS // 2), mode="replicate")
     return F.conv1d(x, filt, stride=2, groups=c)
+
+
+def snake_reach(q: int) -> int:
+    """The last input index that output index ``q`` of ``alias_free_snake``
+    reads: the downsampler's last tap, then the upsampler's.  ``q`` may be
+    an offset from a frame boundary, as in ``nn/convolution.py::conv_reach``."""
+    pad = TAPS // 2 - 1
+    last = 2 * q + TAPS - 1 - pad                 # downsample2: padded rows 2q .. 2q + TAPS - 1
+    return (last + pad * 2 + (TAPS - 2) // 2) // 2 - pad   # upsample2: its crop, then its pad
 
 
 def snake_factors(alpha: torch.Tensor, beta: torch.Tensor, dtype=torch.float32):

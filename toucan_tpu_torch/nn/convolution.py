@@ -52,6 +52,17 @@ def same_conv(c_in, c_out, kernel_size, dilation=1, groups=1, bias=True) -> nn.C
                      dilation=dilation, groups=groups, bias=bias)
 
 
+def conv_reach(conv: nn.Module, q: int) -> int:
+    """The last input index that output index ``q`` of a Conv1d or
+    ConvTranspose1d reads.  ``q`` may be an offset from a frame boundary
+    of the output, negative too: the input index is then the offset from
+    the same boundary of the input (floor division keeps the phase)."""
+    (k,), (s,), (p,), (d,) = conv.kernel_size, conv.stride, conv.padding, conv.dilation
+    if isinstance(conv, nn.ConvTranspose1d):   # output o = i * s - p + j * d, tap j < k
+        return max((q + p - j * d) // s for j in range(k) if (q + p - j * d) % s == 0)
+    return q * s - p + d * (k - 1)
+
+
 FLAX_MOMENTUM = 0.9  # flax's BatchNorm(momentum=0.9) is PyTorch's momentum=0.1
 
 
