@@ -24,37 +24,33 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 
 
 def serve_reference(st, ref, count: int, tf32: bool) -> tuple:
-    """(records, noise shapes, picks): the first ``count`` schedule
-    sentences as a client records them, at the shapes the program's
-    interface would run them at, the sampled ones synthesized by the
-    reference with TF32 on or off."""
-    from bench_h100.harness import check
-    from toucan_tpu_torch.infer.interface import FRAMES_PER_PHONE, PHONE_BUCKET, _round_up
+    """(records, noise shapes, picks, client): the first ``count`` schedule
+    sentences as the cell's client records them, at the shapes at which
+    the program's interface would run them (the client's ``shapes``) and
+    with what the client gives the program, the sampled ones synthesized
+    by the reference with TF32 on or off."""
+    from bench_h100.harness import check, spec
 
-    mels = st.config["acoustic"]["mel_channels"]
+    client = spec.client(st.mix["client"])(st, None)
     records, shapes = [], []
     for i, (_, p) in enumerate(st.schedule[:count]):
-        pad = _round_up(p, PHONE_BUCKET)
+        pad, frames = client.shapes(i)
         records.append(dict(item=i, phones=p, phone_bucket=pad, noise_index=i, frames=0))
-        shapes.append((1, pad * FRAMES_PER_PHONE, mels))
+        shapes.append(st.family.noise_shape(st.config, frames))
     sample = check.Sample(st.seed)
     for i, rec in enumerate(records):
         sample.offer(i, rec["phones"])
     picks = sample.picks(records)
-    draws = check.noise(st.seed, shapes, set(picks), ref.device)
+    draws = ref.noise(st.seed, shapes, set(picks))
     check.set_tf32(tf32)
     try:
         for i in picks:
-            rec = records[i]
-            out = ref.synthesize(ref.fe.string_to_features(st.schedule[i][0]),
-                                 rec["phone_bucket"], draws[i])
-            rec.update(wave=out["wave"], frames=out["frames"])
-            if st.mix["client"] == "call":
-                rec.update(durations=out["durations"], pitch=out["pitch"],
-                           energy=out["energy"])
+            out = ref.synthesize(st.features[st.schedule[i][0]], records[i]["phone_bucket"],
+                                 draws[i], **(client.given(i) or {}))
+            records[i].update(client.served(out))
     finally:
         check.set_tf32(False)
-    return records, shapes, picks
+    return records, shapes, picks, client
 
 
 def control(cell_name: str, seed: int, precision: str = "tf32", count: int = 96,
@@ -62,10 +58,11 @@ def control(cell_name: str, seed: int, precision: str = "tf32", count: int = 96,
     from bench_h100.harness import check, run
 
     st = run.prepare(cell_name, seed, device, config_override, mix_override)
-    ref = check.Reference(st.tts, st.voc, st.embedding, device)
-    records, shapes, picks = serve_reference(st, ref, count, precision == "tf32")
+    ref = st.family.Reference(st.tts, st.voc, st.embedding, device)
+    records, shapes, picks, client = serve_reference(st, ref, count, precision == "tf32")
     features = {i: ref.fe.string_to_features(st.schedule[i][0]) for i in picks}
-    numbers, ties = check.judge(ref, records, picks, st.schedule, features, seed, shapes)
+    numbers, ties = check.judge(ref, records, picks, st.schedule, features, seed, shapes,
+                                client.given)
     failed = [k for k, v in numbers.items() if not v <= st.limits[k]]
     return {"cell": cell_name, "seed": seed, "precision": precision, "near_ties": ties,
             "correct": not failed, "numbers": numbers, "limits": st.limits}

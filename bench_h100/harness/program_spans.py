@@ -40,9 +40,16 @@ def innermost(spans) -> list:
 
 def idle_ns(trace) -> dict | None:
     """{span name or ``OUTSIDE``: idle ns of the window}, or None where the
-    trace holds no device operation (no trace, or the CPU) or no span."""
+    trace holds no device operation (no trace, or the CPU) or no span;
+    worked out once a trace."""
     if trace is None or not trace.device_ops:
         return None
+    if "idle_ns" not in trace.memo:
+        trace.memo["idle_ns"] = _idle_ns(trace)
+    return trace.memo["idle_ns"]
+
+
+def _idle_ns(trace) -> dict | None:
     segs = innermost([h for h in trace.host if h[2].startswith(PREFIX)])
     if not segs:
         return None

@@ -32,6 +32,7 @@ class Run:
     setup_s: float
     trace: Trace = None
     frontend_s: list = dataclasses.field(default_factory=list)
+    sentence_latency: bool = True   # a record's send-to-done is its sentence's own wait
 
     @property
     def served(self) -> list:
@@ -42,7 +43,7 @@ def percentile_ms(run: Run, q: float):
     """The ``q``-th percentile (inclusive method of ``statistics.quantiles``)
     of every request's send-to-done time; a failed request counts as the
     slowest."""
-    if not run.records or run.mix["client"] != "call":
+    if not run.records or not run.sentence_latency:
         return None
     lat = sorted(r["t_done"] - r["t_send"] if "frames" in r else float("inf") for r in run.records)
     pos = (len(lat) - 1) * q / 100.0
@@ -88,6 +89,8 @@ class Setup:
     voc: torch.nn.Module
     embedding: object
     seed: int = 0
+    family: object = None       # the configuration's module in families/
+    features: dict = dataclasses.field(default_factory=dict)   # sentence -> reference features
 
 
 def prepare(cell_name: str, seed: int, device, config_override=None, mix_override=None,
@@ -101,16 +104,23 @@ def prepare(cell_name: str, seed: int, device, config_override=None, mix_overrid
     config = config_override or spec.config(cell["config"])
     mix = mix_override or generator.load_mix(cell["traffic"])
     frontend = TextFrontend(language="en", use_g2p=True)
-    schedule = generator.sentences(mix, seed, lambda t: len(frontend.string_to_features(t)))
-    calibration = [(frontend.string_to_features(t), len(t.split()))
-                   for t, _ in schedule[:2 * mix["block"]]]
+    features = {}
+
+    def count(text):
+        if text not in features:
+            features[text] = frontend.string_to_features(text)
+        return len(features[text])
+
+    schedule = generator.sentences(mix, seed, count)
+    features = {t: features[t] for t, _ in schedule}
+    calibration = [(features[t], len(t.split())) for t, _ in schedule[:2 * mix["block"]]]
     parts["traffic_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     tts, voc, emb = weights.make(config, seed, device, calibration, check.LANG_EN,
                                  generator.frames_per_word(mix["corpus"]))
     parts["weights_s"] = time.perf_counter() - t0
     return Setup(cell_name, cell, config, mix, spec.limits(cell_name), schedule, tts, voc, emb,
-                 seed)
+                 seed, spec.family(config), features)
 
 
 def execute(cell_name: str, seed: int, seconds: float, traced: bool, device="cuda",
@@ -124,7 +134,8 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool, device="cud
     cell, config, mix, limits, schedule = st.cell, st.config, st.mix, st.limits, st.schedule
     tts, voc, emb = st.tts, st.voc, st.embedding
     t0 = time.perf_counter()
-    iface = serve.build_interface(config, tts.state_dict(), voc.state_dict(), emb, seed, device)
+    iface = st.family.build_interface(config, tts.state_dict(), voc.state_dict(), emb, seed,
+                                      device)
     tts.to("cpu"), voc.to("cpu")
     parts["interface_s"] = time.perf_counter() - t0
     cuda = torch.device(device).type == "cuda"
@@ -135,10 +146,9 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool, device="cud
         on_interface(iface)
     trace = Trace() if traced else None
     sample = check.Sample(seed)
-    client = serve.CLIENTS[mix["client"]](iface, schedule, mix, sample,
-                                         span=Trace.span if traced else None)
+    client = spec.client(mix["client"])(st, sample, iface, span=Trace.span if traced else None)
     t0 = time.perf_counter()
-    iface.precompile(phone_buckets=tuple(client.buckets()), batch_sizes=(1,))
+    client.precompile()
     parts["precompile_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     client.warm()
@@ -156,6 +166,7 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool, device="cud
                 window_s = client.run(seconds)
     else:
         window_s = client.run(seconds)
+    closed = time.perf_counter()
     peak = torch.cuda.max_memory_allocated(device) if cuda else 0
     captures = len(iface._e2e_cache) - buckets   # made on a live request
     client.finish()
@@ -165,7 +176,8 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool, device="cud
     if traced:
         del iface.text2phone.string_to_features
 
-    run = Run(cell, config, mix, client.records, window_s, setup_s, trace, frontend_s)
+    run = Run(cell, config, mix, client.records, window_s, setup_s, trace, frontend_s,
+              client.sentence_latency)
     picks = sample.picks(client.records)
     program_features = {i: iface.text2phone.string_to_features(
         schedule[client.records[i]["item"]][0]) for i in picks}
@@ -178,14 +190,16 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool, device="cud
     if cuda:
         check.set_tf32(False)
     t0 = time.perf_counter()
-    numbers, ties = check.judge(check.Reference(tts, voc, emb, device), client.records, picks,
-                                schedule, program_features, seed, noise_shapes)
+    numbers, ties = check.judge(st.family.Reference(tts, voc, emb, device), client.records,
+                                picks, schedule, program_features, seed, noise_shapes,
+                                client.given)
     check_s = time.perf_counter() - t0
     failed = len(run.records) - len(run.served)
     correct = (failed == 0 and bool(picks)
                and all(numbers[k] <= limits[k] for k in numbers))
 
     metrics = {}
+    t0 = time.perf_counter()
     for name, unit, read in spec.metrics(cell_name, traced):
         value = read(run)
         if value is not None:
@@ -197,13 +211,17 @@ def execute(cell_name: str, seed: int, seconds: float, traced: bool, device="cud
     if traced:
         dev["busy_s"], dev["window_s"] = trace.busy_s, trace.window_s
         out["breakdown"] = {"device_ops": trace.top_ops(), "idle_gaps": trace.top_gaps()}
+    readers_s = time.perf_counter() - t0
     out["checks"] = {k: {"value": v, "limit": limits[k]} for k, v in numbers.items()}
     info = {"window_s": window_s, "captures_in_window": captures, "check_s": check_s,
             "judged": len(picks), "near_ties": ties, "frames_per_phone": _frames_per_phone(run),
             "phones_per_sentence": _mean(r["phones"] for r in run.served),
             "seconds_per_sentence": _mean(r["frames"] * serve.SAMPLES_PER_FRAME
                                           / serve.SAMPLE_RATE for r in run.served),
-            "setup_parts": parts}
+            "setup_parts": parts, "readers_s": readers_s,
+            "after_window_s": time.perf_counter() - closed}
+    if traced:
+        info["trace_parts"] = trace.parts
     return out, info
 
 

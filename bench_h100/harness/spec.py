@@ -1,9 +1,12 @@
-"""The benchmark's data, found by name: ``BENCHMARK.json`` at the
-checkout's root, ``configs/<config>.json``, ``traffic/<mix>.json``,
-``limits/<cell>.json`` and ``metrics/<metric>.py``."""
+"""The benchmark's data and parts, found by name: ``BENCHMARK.json`` at
+the checkout's root, ``configs/<config>.json``, ``traffic/<mix>.json``,
+``limits/<cell>.json``, ``metrics/<metric>.py``, ``families/<family>.py``
+(a configuration's ``"family"``) and ``clients/<client>.py`` (a mix's
+``"client"``)."""
 
 from __future__ import annotations
 
+import importlib
 import importlib.util
 import json
 from pathlib import Path
@@ -25,6 +28,16 @@ def cell(name: str) -> dict:
 
 def config(name: str) -> dict:
     return json.loads((BENCH / "configs" / f"{name}.json").read_text())
+
+
+def family(config: dict):
+    """The module of the configuration's model family."""
+    return importlib.import_module(f"bench_h100.families.{config['family']}")
+
+
+def client(name: str):
+    """The client class of ``clients/<name>.py``."""
+    return importlib.import_module(f"bench_h100.clients.{name}").CLIENT
 
 
 def limits(cell_name: str) -> dict:

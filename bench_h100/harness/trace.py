@@ -14,6 +14,7 @@ from __future__ import annotations
 import bisect
 import contextlib
 import re
+import time
 from collections import defaultdict
 
 import torch
@@ -23,17 +24,14 @@ DEVICE_KINDS = ("kernel", "gpu_memcpy", "gpu_memset")
 WINDOW = "bench.window"
 
 
-def _ns(e, what):
-    v = getattr(e, f"{what}_ns", None)
-    return v() if v is not None else int(getattr(e, f"{what}_us")() * 1000)
-
-
 class Trace:
     def __init__(self):
         self.prof = None
         self.device_ops = []      # (start_ns, end_ns, name), in the window, by start
         self.host = []            # (start_ns, end_ns, name), host ops and spans, by start
         self.window_ns = None
+        self.parts = {}           # seconds of the profiler's stop and of reading its events
+        self.memo = {}            # what one reader works out from the trace for the others
 
     @staticmethod
     def span(name):
@@ -50,17 +48,28 @@ class Trace:
             yield self
             if cuda:
                 torch.cuda.synchronize()
-        self._read(self.prof.profiler.kineto_results.events())
+            t0 = time.perf_counter()
+        t1 = time.perf_counter()
+        events = self.prof.profiler.kineto_results.events()
+        t2 = time.perf_counter()
+        self._read(events)
         self.prof = None
+        self.parts = dict(stop_s=t1 - t0, events_s=t2 - t1, read_s=time.perf_counter() - t2,
+                          events=len(events))
 
     def _read(self, events):
         device, host = [], []
+        # what the running torch's events offer, asked of the first alone
+        first = events[0] if events else None
+        has_kind = hasattr(first, "activity_type")
+        in_ns = getattr(first, "start_ns", None) is not None
+        cuda = torch.autograd.DeviceType.CUDA
         for e in events:
-            kind = e.activity_type() if hasattr(e, "activity_type") else None
-            start = _ns(e, "start")
-            end = start + _ns(e, "duration")
+            kind = e.activity_type() if has_kind else None
+            start = e.start_ns() if in_ns else int(e.start_us() * 1000)
+            end = start + (e.duration_ns() if in_ns else int(e.duration_us() * 1000))
             name = e.name()
-            if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if e.device_type() == cuda:
                 # without an activity type, the device's copies of the host
                 # spans are told apart by their names
                 if kind in DEVICE_KINDS or (not isinstance(kind, str)
@@ -83,7 +92,12 @@ class Trace:
 
     def gaps(self) -> list:
         """(start_ns, end_ns) of every stretch of the window with no device
-        operation."""
+        operation (found once; the readers share them)."""
+        if "gaps" not in self.memo:
+            self.memo["gaps"] = self._gaps()
+        return self.memo["gaps"]
+
+    def _gaps(self) -> list:
         out, cur = [], self.window_ns[0]
         for s, t, _ in self.device_ops:
             if s > cur:
@@ -98,9 +112,13 @@ class Trace:
         return self.window_s - sum(t - s for s, t in self.gaps()) / 1e9
 
     def kernel_times(self, pattern: str) -> list:
-        """Seconds of each device operation whose name matches ``pattern``."""
+        """Seconds of each device operation whose name matches ``pattern``,
+        in the order they ran."""
+        if "names" not in self.memo:
+            self.memo["names"] = {n for _, _, n in self.device_ops}
         rx = re.compile(pattern)
-        return [(t - s) / 1e9 for s, t, n in self.device_ops if rx.search(n)]
+        match = {n for n in self.memo["names"] if rx.search(n)}
+        return [(t - s) / 1e9 for s, t, n in self.device_ops if n in match]
 
     def top_ops(self, k: int = 10) -> list:
         totals = defaultdict(float)

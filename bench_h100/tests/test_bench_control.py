@@ -7,7 +7,7 @@ import pytest
 
 from bench_h100.harness import control
 
-CELLS = ["toucan_hifigan.interactive", "toucan_bigvgan.read_aloud"]
+CELLS = ["toucan_hifigan.interactive", "toucan_bigvgan.read_aloud", "toucan_hifigan.override"]
 
 
 @pytest.mark.card

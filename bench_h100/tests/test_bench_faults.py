@@ -1,7 +1,9 @@
 """The timed path broken underneath, on the CPU at tiny widths: a run must
 come out not correct.  Each fault alters an answer where the program
 produces it: the wave in the vocoder's call, one phone's duration in the
-duration predictor, the pitch in the pitch predictor."""
+duration predictor, the pitch in the pitch predictor, and, where the
+client gives them, one given duration or the given pitch where the
+acoustic model takes them."""
 
 import pytest
 
@@ -37,8 +39,33 @@ def alter_pitch(iface):
     pp.forward = altered
 
 
-@pytest.mark.parametrize("cell", CELLS)
-@pytest.mark.parametrize("fault", [alter_wave, alter_duration])
+def alter_given(name, change):
+    def fault(iface):
+        infer = iface.model.infer
+
+        def altered(*args, **kwargs):
+            kwargs[name] = change(kwargs[name].clone())
+            return infer(*args, **kwargs)
+        iface.model.infer = altered
+    fault.__name__ = f"alter_{name}"
+    return fault
+
+
+def one_more_frame(d):
+    d[:, 1] += 1
+    return d
+
+
+PREDICTED = CELLS[:2]   # the cells whose durations and pitch the model predicts
+GIVEN = CELLS[2]
+
+
+@pytest.mark.parametrize("cell,fault", [(c, f) for c in PREDICTED
+                                        for f in (alter_wave, alter_duration)]
+                         + [(GIVEN, alter_wave),
+                            (GIVEN, alter_given("gold_durations", one_more_frame)),
+                            (GIVEN, alter_given("gold_pitch", lambda p: p * 1.01)),
+                            (GIVEN, alter_given("gold_energy", lambda e: e * 1.01))])
 def test_a_fault_is_not_correct(cell, fault):
     out, _ = tiny_run(cell, on_interface=fault)
     assert out["correct"] is False, out["checks"]

@@ -39,7 +39,9 @@ def test_a_loaded_harness_holds_no_jax_module():
     code = ("import sys; sys.path.insert(0, %r)\n"
             "import bench_h100.harness.run, bench_h100.harness.control\n"
             "from bench_h100.harness import spec\n"
-            "import toucan_tpu_torch.infer.interface\n"
+            "import toucan_tpu_torch.infer.interface, importlib, pathlib\n"
+            "[importlib.import_module(f'bench_h100.{p.parent.name}.{p.stem}') "
+            "for d in ('families', 'clients') for p in pathlib.Path('bench_h100', d).glob('*.py')]\n"
             "[spec.reader(m['name']) for k in ('end_to_end', 'per_layer') "
             "for m in spec.benchmark()[k]]\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in %r))"

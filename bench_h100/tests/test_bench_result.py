@@ -10,7 +10,7 @@ import pytest
 import tiny
 from bench_h100.harness import run, spec
 
-CELLS = ["toucan_hifigan.interactive", "toucan_bigvgan.read_aloud"]
+CELLS = ["toucan_hifigan.interactive", "toucan_bigvgan.read_aloud", "toucan_hifigan.override"]
 
 
 def tiny_run(cell, traced=False, seed=2**31 + 5, seconds=1.0, **kw):
@@ -53,15 +53,30 @@ def test_no_card_no_result():
 
 
 def test_padding_is_read_from_what_the_program_ran(monkeypatch):
-    """A tighter frame bucket in the program shows in ``pad_ratio`` and is
-    judged at the shapes it ran: the yardstick keeps no copy of the rule."""
+    """A coarser vocoder frame bucket in the program shows in ``pad_ratio``
+    and is judged at the shapes it ran: the yardstick keeps no copy of the
+    rule."""
     from toucan_tpu_torch.infer import interface
 
-    wide, _ = tiny_run(CELLS[0], traced=True, seed=2**31 + 21)
-    monkeypatch.setattr(interface, "FRAMES_PER_PHONE", interface.FRAMES_PER_PHONE // 2)
-    tight, _ = tiny_run(CELLS[0], traced=True, seed=2**31 + 21)
-    assert wide["correct"] is True and tight["correct"] is True
-    # the window serves whole cycles of the same sentences or nearly, so
-    # half the frames a phone reads as about half the padding
-    ratio = tight["metrics"]["pad_ratio"]["value"] / wide["metrics"]["pad_ratio"]["value"]
-    assert 0.4 < ratio < 0.6
+    runs = []
+
+    class Seen(run.Run):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            runs.append(self)
+
+    monkeypatch.setattr(run, "Run", Seen)
+    fine, _ = tiny_run(CELLS[0], traced=True, seed=2**31 + 21)
+    monkeypatch.setattr(interface, "_frame_bucket", lambda frames: interface._round_up(frames, 512))
+    coarse, _ = tiny_run(CELLS[0], traced=True, seed=2**31 + 21)
+    assert fine["correct"] is True and coarse["correct"] is True
+    # the tiny sentences' mels and the receptive frames fit in 512 frames,
+    # so the coarse bucket vocodes 512 frames a step, or every decoded
+    # frame where the step decoded fewer
+    served = runs[1].served
+    want = sum(min(512, r["decoder_frames"]) for r in served) / sum(r["frames"] for r in served)
+    assert coarse["metrics"]["pad_ratio"]["value"] == pytest.approx(want, rel=1e-12)
+    assert coarse["metrics"]["pad_ratio"]["value"] > 2 * fine["metrics"]["pad_ratio"]["value"]
+    # the frames the acoustic model decoded do not follow the vocoder's bucket
+    assert (coarse["metrics"]["decode_pad_ratio"]["value"]
+            == pytest.approx(fine["metrics"]["decode_pad_ratio"]["value"], rel=0.2))

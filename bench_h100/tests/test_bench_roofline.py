@@ -9,7 +9,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 import tiny
-from bench_h100.reference import models as ref_models
+from bench_h100.families import toucan_tts
 from bench_h100.roofline import kernels, launches, model_flops, peaks
 
 STAGES = ((8, 256), (48, 128), (192, 64), (384, 32))
@@ -50,7 +50,7 @@ def test_launches_per_sentence():
 def test_model_flops_match_the_flop_counter(vocoder, n):
     cfg = tiny.config(vocoder)
     torch.manual_seed(0)
-    tts, voc = ref_models.build(cfg, "cpu")
+    tts, voc = toucan_tts.build(cfg, "cpu")
     a = cfg["acoustic"]
     x = torch.randn(1, n, a["input_features"])
     kw = dict(utterance_embedding=torch.randn(1, 64), lang_ids=torch.tensor([[3]]))
@@ -67,6 +67,6 @@ def test_model_flops_match_the_flop_counter(vocoder, n):
     excess = (a["enc_layers"] * 2 * n * (n - 1) * a["adim"]
               + a["dec_layers"] * 2 * frames * (frames - 1) * a["adim"])
     # the glow keeps an even number of frames, which the vocoder runs over
-    want = (model_flops.acoustic(a, n, frames)
+    want = (toucan_tts.acoustic_flops(cfg, n, frames)
             + model_flops.vocoder(cfg["vocoder"], cfg["vocoder_config"], after.shape[1]))
     assert want == counted - excess

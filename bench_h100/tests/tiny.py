@@ -4,6 +4,8 @@ import copy
 import json
 from pathlib import Path
 
+from bench_h100.traffic import generator
+
 BENCH = Path(__file__).resolve().parent.parent
 
 TINY_ACOUSTIC = dict(adim=32, aheads=2, enc_layers=1, enc_units=64, dec_layers=1, dec_units=64,
@@ -25,8 +27,7 @@ TINY_CORPUS = dict(clips=1, words=5, characters=29, seconds=2.0, min_seconds=1.0
 
 
 def mix(name: str, **changes) -> dict:
-    m = json.loads((BENCH / "traffic" / f"{name}.json").read_text())
-    m = {**json.loads((BENCH / "traffic" / f"{m['text']}.json").read_text()), **m}
+    m = generator.load_mix(name)
     m.update(dict(block=4, blocks=2, corpus=TINY_CORPUS), **changes)
     if "page" in m:
         m["page"] = 4

@@ -2,8 +2,9 @@
 
 A mix file (``traffic/<mix>.json``) names its client and a text file
 (``"text"``: ``traffic/<text>.json``), whose parameters it shares with
-every other mix of that text; this module reads them and nothing else, so a
-new mix or text is a new data file.
+every other mix of that text, and may add parameters of its client's
+own; this module reads them and nothing else, so a new mix or text is a
+new data file.
 
 The sentences are one fixed text drawn from ``text_seed``: ``blocks``
 blocks of ``block`` sentences.  Every block holds the same lengths: a
@@ -34,9 +35,10 @@ FRAME_RATE = 24000 / 384    # mel frames a second: 384 samples a frame at 24 kHz
 
 def load_mix(name: str) -> dict:
     """The parameters of mix ``name`` (``traffic/<name>.json``) over those
-    of the text it names."""
+    of the text it names; the two files' ``assumed`` are merged."""
     mix = json.loads((HERE / f"{name}.json").read_text())
-    return {**json.loads((HERE / f"{mix['text']}.json").read_text()), **mix}
+    text = json.loads((HERE / f"{mix['text']}.json").read_text())
+    return {**text, **mix, "assumed": {**text.get("assumed", {}), **mix.get("assumed", {})}}
 
 
 def words_per_second(corpus: dict) -> float:
