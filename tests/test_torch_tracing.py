@@ -150,4 +150,4 @@ def test_counters_follow_frames_and_live_buckets(tmp_path):
     assert iface.counters == dict(requests=3, sentences=5,
                                   frames_run=cut[0] + sum(cut) + 2 * max(cut),
                                   frames_delivered=delivered, buckets_built=11,
-                                  buckets_built_live=2, steps_uncut=0)
+                                  buckets_built_live=2, steps_uncut=0, frames_truncated=0)

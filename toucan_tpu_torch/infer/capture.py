@@ -81,9 +81,11 @@ class Bucket:
             self.reserved_bytes = torch.cuda.memory_reserved(self.device) - reserved
 
     def __call__(self, **inputs) -> tuple:
-        """Fill the named buffers and run the step; returns copies of its
-        outputs.  A value is a tensor to copy in (of the buffer's shape) or
-        a function that fills the buffer it is given in place."""
+        """Fill the named buffers, in the order given, and run the step;
+        returns copies of its outputs.  A value is a tensor to copy in (of
+        the buffer's shape) or a function that fills the buffer it is given
+        in place (so functions that draw from one generator draw in the
+        order of the arguments)."""
         fixed = {name for name, buf in self.inputs.items() if buf is not None}
         if set(inputs) != fixed:
             raise ValueError(f"the bucket takes exactly {sorted(fixed)}, got {sorted(inputs)}")

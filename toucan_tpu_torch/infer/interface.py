@@ -5,7 +5,11 @@ Counterpart of ``toucan_tpu/infer/interface.py`` (reference
 the utterance embedding (given, or from reference audio through the GST),
 the prosody-control knobs, per-phone prosody overrides, batched synthesis,
 ``read_to_file``, ``read_aloud``, ``plot_synthesis``, the HiFiGAN or
-BigVGAN vocoder and ``quantize_vocoder`` (int8 HiFiGAN stages).  Inputs are
+BigVGAN vocoder and ``quantize_vocoder`` (int8 HiFiGAN stages).  The
+acoustic model is ``ToucanTTS`` or, with ``acoustic="stochastic"``,
+``StochasticToucanTTS``, whose spline flows sample pitch, energy and
+durations from the flows' noise (drawn, as the glow's, from the
+interface's generator into the bucket's buffers before each replay).  Inputs are
 padded to the same buckets as the JAX interface (32 phones, 16 frames per
 phone), so the acoustic model computes on the same shapes.  A step runs
 in two halves: the acoustic model at 16 frames a padded phone gives the
@@ -70,6 +74,7 @@ from toucan_tpu_torch.frontend.audio import AudioPreprocessor, read_wav
 from toucan_tpu_torch.frontend.text import TextFrontend, language_id
 from toucan_tpu_torch.infer.capture import Bucket
 from toucan_tpu_torch.models.gst import StyleEmbedding
+from toucan_tpu_torch.models.stochastic_toucan_tts import FLOWS, StochasticToucanTTS
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator, calibrate_act_scales
@@ -77,13 +82,16 @@ from toucan_tpu_torch.utils.device import check_policy, matmul_precision, resolv
 from toucan_tpu_torch.utils.profiling import span
 
 VOCODERS = {"hifigan": HiFiGANGenerator, "bigvgan": BigVGAN}
+ACOUSTIC = {"toucan": ToucanTTS, "stochastic": StochasticToucanTTS}
 # the operator's counters (``ToucanTTSInterface.counters``): requests on the
 # entry points, sentences, vocoder frames run (rows included) and delivered,
 # buckets made and those made outside ``precompile`` (a capture on a live
-# request on the card), and steps whose vocoder ran every decoded frame (it
-# gives no receptive frames, or the cut reached them)
+# request on the card), steps whose vocoder ran every decoded frame (it
+# gives no receptive frames, or the cut reached them), and frames of mel
+# lengths past the frames their step decoded (durations that sum past the
+# bucket; the lengths delivered are clamped to it)
 COUNTERS = ("requests", "sentences", "frames_run", "frames_delivered", "buckets_built",
-            "buckets_built_live", "steps_uncut")
+            "buckets_built_live", "steps_uncut", "frames_truncated")
 PHONE_BUCKET = 32
 FRAMES_PER_PHONE = 16       # static upper bound for the upsampled length
 FINE_FRAMES = 1024          # the vocoder's frame buckets: 64-frame steps to here, 512 above
@@ -119,7 +127,8 @@ class ToucanTTSInterface:
                  vocoder: Union[str, nn.Module] = "hifigan", default_embedding=None,
                  language: str = "en", use_g2p: bool = True, seed: int = 0, device=None,
                  gst_state_dict=None, dtype: Optional[torch.dtype] = None,
-                 matmul_precision: str = "float32", mesh=None, longform_frames: int = 1024):
+                 matmul_precision: str = "float32", mesh=None, longform_frames: int = 1024,
+                 acoustic: str = "toucan"):
         """``vocoder`` is "hifigan" (``HiFiGANGenerator()``), "bigvgan"
         (``BigVGAN()``) or a vocoder module of the checkpoint's widths; the
         state dicts are loaded into the models.  ``gst_state_dict``: the
@@ -140,12 +149,30 @@ class ToucanTTSInterface:
         'data' (``dist/longform.py``'s halo exchange), and returns the whole
         wave on every rank, as the JAX interface's ``mesh`` does.  That path
         runs eagerly, outside the per-bucket CUDA graphs: its exchange is a
-        collective, which a graph cannot hold under gloo."""
+        collective, which a graph cannot hold under gloo.
+
+        ``acoustic``: "toucan" (``ToucanTTS``) or "stochastic"
+        (``StochasticToucanTTS`` of the same config, f32 only).  A
+        stochastic interface samples prosody at the model's ``noise_scale``
+        and serves ``__call__``, ``synthesize_batch`` and ``read_to_file``
+        through the same buckets, graphs and vocoder cut; each step draws
+        the pitch, energy and duration flows' N(0, 1) noise, (B, phones, 2)
+        each, then the glow noise.  Its model takes no knobs and no given
+        durations, pitch or energy, so those (a knob other than 1, an
+        override, ``precompile(with_overrides=True)``), ``mesh`` and a
+        ``dtype`` other than f32 raise ValueError."""
+        if acoustic not in ACOUSTIC:
+            raise ValueError(f"acoustic must be one of {sorted(ACOUSTIC)}, got {acoustic!r}")
+        self.stochastic = acoustic == "stochastic"
+        if self.stochastic and mesh is not None:
+            raise ValueError("a stochastic interface has no long-form mesh path")
         self.device = resolve_device(device)
         self.config = config or ToucanTTSConfig()
         if dtype is not None and self.config.dtype != dtype:
             self.config = dataclasses.replace(self.config, dtype=dtype)
-        self.model = ToucanTTS(self.config)
+        if self.stochastic and self.config.dtype != torch.float32:
+            raise ValueError("a stochastic interface computes in f32 only")
+        self.model = ACOUSTIC[acoustic](self.config)
         self.model.load_state_dict(tts_state_dict)
         self.model.to(self.device).eval()
         if isinstance(vocoder, str):
@@ -280,11 +307,12 @@ class ToucanTTSInterface:
         text_arr = np.zeros((1, n_pad, phones.shape[1]), np.float32)
         text_arr[0, :n] = phones
         max_frames = n_pad * FRAMES_PER_PHONE
-        _, after, *_, lens = self.model.infer(
-            self._tensor(text_arr), self._tensor([n], torch.int64), max_frames,
-            utterance_embedding=self._utt(1), lang_ids=self._lang([self.lang_id]),
-            glow_noise=self._noise(1, max_frames))
-        return after[:, :int(lens[0])].float()
+        flow_noise = self._flow_noise(1, n_pad) if self.stochastic else None
+        after, *_, lens = self._acoustic(
+            self._tensor(text_arr), self._tensor([n], torch.int64), max_frames, self._utt(1),
+            self._lang([self.lang_id]), self._noise(1, max_frames), (1.0,) * 4,
+            flow_noise=flow_noise)
+        return after[:, :int(lens[0])]
 
     def _vocoder_call(self, mel):
         if self._voc_act_scales is None:
@@ -332,36 +360,64 @@ class ToucanTTSInterface:
         self._draw_noise(buf)
         return buf
 
+    def _draw_flow_noise(self, buf: torch.Tensor):
+        """Fill buf (3, B, T, 2) with the pitch, energy and duration flows'
+        N(0, 1) draws from the interface's generator, in that order."""
+        for part in buf:
+            torch.randn(part.shape, generator=self.generator, out=part)
+
+    def _flow_noise(self, b: int, phones: int) -> torch.Tensor:
+        buf = torch.empty((len(FLOWS), b, phones, 2), device=self.device)
+        self._draw_flow_noise(buf)
+        return buf
+
+    def _refuse_prosody(self, knobs, durations=None, pitch=None, energy=None):
+        """A stochastic interface's model samples its prosody: raise where a
+        call asks for a knob other than 1 or gives durations, pitch or
+        energy."""
+        if self.stochastic and (any(k != 1.0 for k in knobs)
+                                or any(x is not None for x in (durations, pitch, energy))):
+            raise ValueError("a stochastic interface takes no prosody knobs other than 1 "
+                             "and no given durations, pitch or energy")
+
     @torch.inference_mode()
     def _e2e(self, text, text_lengths, max_frames: int, utt, lang, noise, knobs=(1.0,) * 4,
-             durations=None, pitch=None, energy=None):
+             durations=None, pitch=None, energy=None, flow_noise=None):
         """Text -> mel -> wave on the device over every decoded frame: the
         step of an ``_e2e_cache`` bucket where the vocoder gives no
         receptive frames.  Tensors on ``self.device``; ``knobs`` the
         (duration, pitch variance, energy variance, pause) scales, a (4,)
-        tensor or floats.  Returns (wave (B, 384*max_frames), after,
+        tensor or floats; ``flow_noise`` (3, B, T, 2) the stochastic
+        model's flow noise.  Returns (wave (B, 384*max_frames), after,
         durations, pitch, energy, mel_lengths); the mel handed to the
         vocoder and the one returned are f32 whatever the model's dtype, as
         in JAX (``interface.py:239``)."""
         mel, *outs = self._mel_step(text, text_lengths, max_frames, utt, lang, noise, knobs,
-                                    durations, pitch, energy)
+                                    durations, pitch, energy, flow_noise)
         return (self._vocoder_call(mel)[..., 0], *outs)
 
     @torch.inference_mode()
     def _mel_step(self, text, text_lengths, max_frames: int, utt, lang, noise,
-                  knobs=(1.0,) * 4, durations=None, pitch=None, energy=None):
+                  knobs=(1.0,) * 4, durations=None, pitch=None, energy=None, flow_noise=None):
         """The acoustic half of ``_e2e``, the step of an ``_e2e_cache``
         bucket where the vocoder is cut: (the mel zeroed past each length,
         after, durations, pitch, energy, mel_lengths)."""
         after, dur, pit, ene, lens = self._acoustic(
-            text, text_lengths, max_frames, utt, lang, noise, knobs, durations, pitch, energy)
+            text, text_lengths, max_frames, utt, lang, noise, knobs, durations, pitch, energy,
+            flow_noise)
         mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
         mel = torch.where(mask, after, torch.zeros((), device=after.device))
         return mel, after, dur, pit, ene, lens
 
     def _acoustic(self, text, text_lengths, max_frames: int, utt, lang, noise, knobs,
-                  durations=None, pitch=None, energy=None):
-        """Text -> (after (f32), durations, pitch, energy, mel_lengths)."""
+                  durations=None, pitch=None, energy=None, flow_noise=None):
+        """Text -> (after (f32), durations, pitch, energy, mel_lengths); the
+        stochastic model samples its prosody from ``flow_noise``."""
+        if self.stochastic:
+            _, after, dur, pit, ene, lens = self.model.infer(
+                text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
+                glow_noise=noise, flow_noise=tuple(flow_noise))
+            return after, dur, pit, ene, lens
         _, after, dur, pit, ene, lens = self.model.infer(
             text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
             gold_durations=durations, gold_pitch=pitch, gold_energy=energy,
@@ -393,12 +449,15 @@ class ToucanTTSInterface:
         """The bucket of these inputs (device tensors or None, named as
         ``_e2e``'s arguments), made and, on the card, captured on first use.
         Its key holds all that a graph fixes: batch size, phone bucket,
-        ``max_frames`` and which overrides were given."""
+        ``max_frames`` and which overrides were given.  A stochastic
+        model's bucket also takes the flows' noise, (3, B, phones, 2)."""
         text = inputs["text"]
         key = (text.shape[0], text.shape[1], max_frames,
                *(inputs.get(k) is not None for k in ("durations", "pitch", "energy")))
         if key not in self._e2e_cache:
             specs = {k: None if v is None else (tuple(v.shape), v.dtype) for k, v in inputs.items()}
+            if self.stochastic:
+                specs["flow_noise"] = ((len(FLOWS), *text.shape[:2], 2), torch.float32)
             specs["noise"] = ((text.shape[0], max_frames, self.config.mel_channels), torch.float32)
             self._e2e_cache[key] = self._bucket(
                 functools.partial(self._e2e_step(), max_frames=max_frames), specs, live)
@@ -421,24 +480,33 @@ class ToucanTTSInterface:
         wave, = self._vocoder_bucket(*mel.shape[:2])(mel=mel)
         return wave[..., 0]
 
-    def _run_e2e(self, max_frames: int, noise=None, **inputs):
+    def _run_e2e(self, max_frames: int, noise=None, flow_noise=None, **inputs):
         """Text -> wave: the acoustic half through its bucket at
         ``max_frames`` decoded frames, then, once the host has read the mel
         lengths (the step's one wait for the device), the vocoder through
         the bucket of its ``_cut_frames``; eagerly where ``_eager`` is set.
         Where the vocoder gives no receptive frames, ``_e2e`` fused over
         every decoded frame, without a wait.  ``inputs``: device tensors or
-        None; ``noise`` a device tensor, or None to draw it from the
-        generator into the bucket's buffer.  Returns ``_e2e``'s device
-        outputs, the wave over the frames the vocoder ran."""
+        None; ``noise`` (and, for the stochastic model, ``flow_noise``) a
+        device tensor, or None to draw it from the generator into the
+        bucket's buffer, the flows' before the glow's.  Returns ``_e2e``'s
+        device outputs, the wave over the frames the vocoder ran."""
         if self._eager:
-            if noise is None:
-                noise = self._noise(inputs["text"].shape[0], max_frames)
-            outs = self._e2e_step()(max_frames=max_frames, noise=noise, **inputs)
+            b, phones = inputs["text"].shape[:2]
+            draws = {}
+            if self.stochastic:
+                draws["flow_noise"] = (self._flow_noise(b, phones) if flow_noise is None
+                                       else flow_noise)
+            draws["noise"] = self._noise(b, max_frames) if noise is None else noise
+            outs = self._e2e_step()(max_frames=max_frames, **draws, **inputs)
         else:
+            # the bucket fills its buffers in this order: the flows' draws first
+            draws = {}
+            if self.stochastic:
+                draws["flow_noise"] = self._draw_flow_noise if flow_noise is None else flow_noise
+            draws["noise"] = self._draw_noise if noise is None else noise
             given = {k: v for k, v in inputs.items() if v is not None}
-            outs = self._e2e_bucket(max_frames, inputs)(
-                noise=self._draw_noise if noise is None else noise, **given)
+            outs = self._e2e_bucket(max_frames, inputs)(**draws, **given)
         if self._reach is None:
             self.counters["steps_uncut"] += 1
             return outs
@@ -458,6 +526,8 @@ class ToucanTTSInterface:
         frames), then their text -> mel buckets.  Each kind goes largest
         first: the smaller graphs then capture into the memory the larger
         captures left free in the interface's pool."""
+        if with_overrides and self.stochastic:
+            raise ValueError("a stochastic interface takes no given durations, pitch or energy")
         if self._reach is not None:
             cuts = {(b, self._cut_frames(length, n_pad * FRAMES_PER_PHONE))
                     for b in batch_sizes for n_pad in phone_buckets
@@ -470,7 +540,7 @@ class ToucanTTSInterface:
             inputs = dict(text=self._tensor(np.zeros((b, n_pad, feats))),
                           text_lengths=self._tensor(np.full(b, n_pad), torch.int64),
                           utt=self._utt(b), lang=self._lang([self.lang_id] * b),
-                          knobs=self._tensor(np.ones(4)))
+                          knobs=None if self.stochastic else self._tensor(np.ones(4)))
             if with_overrides:
                 inputs.update(durations=self._tensor(np.ones((b, n_pad)), torch.int32),
                               pitch=self._tensor(np.zeros((b, n_pad, 1))),
@@ -496,13 +566,18 @@ class ToucanTTSInterface:
     def _dispatch_call(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                        energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
                        durations=None, pitch=None, energy=None, input_is_phones=False,
-                       glow_noise=None, index=None):
+                       glow_noise=None, flow_noise=None, index=None):
         """Enqueue one sentence's text -> wave and return its device outputs
         (wave, after, durations, pitch, energy, mel_lengths) and its phone
         count, having waited for its acoustic half only (``_run_e2e``), so
         that a caller can enqueue several sentences before it fetches the
         first wave (``read_to_file``, which gives the sentence's ``index``
         to its span)."""
+        knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
+                 pause_duration_scaling_factor)
+        self._refuse_prosody(knobs, durations, pitch, energy)
+        if flow_noise is not None and not self.stochastic:
+            raise ValueError("flow noise is the stochastic model's")
         with span("toucan.dispatch", index=index):
             with span("toucan.frontend"):
                 phones = self.text2phone.string_to_features(text, input_phonemes=input_is_phones)
@@ -531,13 +606,17 @@ class ToucanTTSInterface:
                     z = np.zeros((1, max_frames, self.config.mel_channels), np.float32)
                     z[0, :len(glow_noise)] = glow_noise[:max_frames]
                     noise = self._tensor(z)
-                knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
-                         pause_duration_scaling_factor)
                 inputs = dict(text=self._tensor(text_arr),
                               text_lengths=self._tensor([n], torch.int64), utt=self._utt(1),
-                              lang=self._lang([self.lang_id]), knobs=self._tensor(knobs),
+                              lang=self._lang([self.lang_id]),
+                              knobs=None if self.stochastic else self._tensor(knobs),
                               durations=pad_override(durations, torch.int32),
                               pitch=pad_override(pitch), energy=pad_override(energy))
+                if self.stochastic:
+                    # injected flow noise (3, n, 2): the draws of the sentence's phones
+                    inputs["flow_noise"] = None if flow_noise is None else self._tensor(
+                        np.pad(np.asarray(flow_noise, np.float32)[:, None],
+                               ((0, 0), (0, 0), (0, n_pad - n), (0, 0))))
             run = self._run_e2e
             if self.mesh is not None and max_frames >= self.longform_frames:
                 run = self._longform
@@ -555,22 +634,32 @@ class ToucanTTSInterface:
         """Count the vocoder frames of a step's (rows, samples) waves."""
         self.counters["frames_run"] += waves.shape[0] * (waves.shape[-1] // SAMPLES_PER_FRAME)
 
+    def _delivered(self, mel_len: int, decoded: int) -> int:
+        """A mel length read to the host, clamped to the ``decoded`` frames
+        of its step; the frames past them count as truncated."""
+        if mel_len <= decoded:
+            return mel_len
+        self.counters["frames_truncated"] += mel_len - decoded
+        return decoded
+
     @_under_policy
     def __call__(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                  energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
                  durations=None, pitch=None, energy=None, input_is_phones=False,
                  return_duration_pitch_energy=False, return_plot_as_filepath=False,
-                 glow_noise=None):
+                 glow_noise=None, flow_noise=None):
         """The 24 kHz wave; with ``return_duration_pitch_energy`` also the
         per-phone durations, pitch and energy, with ``return_plot_as_filepath``
-        (and not the former) the path of a PNG of ``plot_synthesis``."""
+        (and not the former) the path of a PNG of ``plot_synthesis``.
+        ``glow_noise`` (frames, 80) and, on a stochastic interface,
+        ``flow_noise`` (3, phones, 2) replace the generator's draws."""
         with span("toucan.call", self._request()):
             (wave, after, dur, pit, ene, lens), n = self._dispatch_call(
                 text, duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
                 pause_duration_scaling_factor, durations, pitch, energy, input_is_phones,
-                glow_noise)
+                glow_noise, flow_noise)
             with span("toucan.fetch"):
-                mel_len = int(lens[0])
+                mel_len = self._delivered(int(lens[0]), after.shape[1])
                 wave = wave[0, :mel_len * SAMPLES_PER_FRAME].cpu().numpy()
                 if return_duration_pitch_energy:
                     out = (wave, dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy(),
@@ -643,6 +732,8 @@ class ToucanTTSInterface:
         waves, converted on the device (a quarter of the bytes to fetch)."""
         b = len(texts)
         langs = languages if languages is not None else [None] * b
+        self._refuse_prosody((duration_scaling_factor, pitch_variance_scale,
+                              energy_variance_scale, pause_duration_scaling_factor))
         with span("toucan.batch", self._request()):
             with span("toucan.frontend"):
                 frontends = [self.text2phone if lg is None else self._frontend(lg)
@@ -666,16 +757,17 @@ class ToucanTTSInterface:
                               text_lengths=self._tensor(lengths, torch.int64), utt=utt,
                               lang=self._lang([self.lang_id if lg is None else language_id(lg)
                                                for lg in langs]),
-                              knobs=self._tensor(knobs))
-            waves, _, _, _, _, lens = self._run_e2e(max_frames, **inputs)
+                              knobs=None if self.stochastic else self._tensor(knobs))
+            waves, after, _, _, _, lens = self._run_e2e(max_frames, **inputs)
             self.counters["sentences"] += b
             self._count_run(waves)
             if return_pcm16:
                 waves = torch.round(waves.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
             with span("toucan.fetch"):
                 waves, lens = waves.cpu().numpy(), lens.cpu().numpy()
-            self.counters["frames_delivered"] += int(lens.sum())
-            return [waves[i, :int(lens[i]) * SAMPLES_PER_FRAME] for i in range(b)]
+            lens = [self._delivered(int(x), after.shape[1]) for x in lens]
+            self.counters["frames_delivered"] += sum(lens)
+            return [waves[i, :lens[i] * SAMPLES_PER_FRAME] for i in range(b)]
 
     # ----------------------------------------------------------- file I/O
 
@@ -705,12 +797,12 @@ class ToucanTTSInterface:
                     energy_variance_scale=energy_variance_scale, durations=durations,
                     pitch=pitch, energy=energy, input_is_phones=input_is_phones,
                     index=len(inflight))
-                inflight.append((outs[0], outs[5]))
+                inflight.append((outs[0], outs[5], outs[1].shape[1]))
             silence = np.zeros(SENTENCE_JOIN_SILENCE, np.float32)
             pieces = [silence]
-            for wave, lens in inflight:
+            for wave, lens, decoded in inflight:
                 with span("toucan.fetch"):
-                    mel_len = int(lens[0])
+                    mel_len = self._delivered(int(lens[0]), decoded)
                     pieces += [wave[0, :mel_len * SAMPLES_PER_FRAME].cpu().numpy(), silence]
                 self.counters["frames_delivered"] += mel_len
             with span("toucan.write"):
