@@ -12,7 +12,8 @@ Phases, each reported on its own lines:
    spills, and the count of tensor-core instructions (HMMA, HGMMA, IMMA)
    and of ``__dp4a`` (IDP) in the SASS of K1-K4: K1 must hold HMMA (f32,
    and the bf16 kernel's bias) and HGMMA (the bf16 kernel's wgmma), K2
-   HMMA, K3 and K4 IMMA (int8) and HMMA (bf16), and K4 no IDP;
+   HGMMA (its split-TF32 wgmma), K3 and K4 IMMA (int8) and HMMA (bf16),
+   and K4 no IDP;
 2. k1: the rel-pos flash attention kernel against its plain PyTorch version
    at B=2, H=4, d=48, T in (128, 2048), and at the main path's encoder
    (B=1, T=128) and decoder (B=1, T=2048, 110 and 2048 valid keys), with
@@ -27,9 +28,12 @@ Phases, each reported on its own lines:
    (``bf16_geometry``: key splits, grid, shared memory, the last checked
    against the kernel's own);
 3. k2: the fused HiFiGAN stage kernel against its plain version at the four
-   stage shapes of 512 and of 2048 mel frames, with the tile and cluster
-   each launch took, on HiFiGAN's weights and on weights at unit gain
-   (where only an f32-accurate product meets K2's tolerance);
+   stage shapes of 448 (the interactive cells' typical vocoder bucket), 512
+   and 2048 mel frames, on HiFiGAN's weights and on weights at unit gain
+   (where only an f32-accurate product meets K2's tolerance), each stage
+   timed with the tiling and variant its launch took, the rows its convs
+   compute over the rows they deliver, and its TFLOP/s against the
+   split-TF32 bound;
 4. k5: the alias-free SnakeBeta kernel against its plain version at
    BigVGAN's four stage shapes of 512 and 2048 mel frames (B = 1) and of
    1024 frames at B = 4, each with its share of the bytes bound, GB/s and
@@ -293,7 +297,8 @@ from toucan_tpu_torch.kernels.flash_attention import (BUILT_HEAD_DIMS, bf16_geom
 from toucan_tpu_torch.kernels.imcol import (imcol_fold, imcol_stage, imcol_stage_plain,
                                             prepare_imcol_stage)
 from toucan_tpu_torch.kernels.resstack import (hifigan_stage, hifigan_stage_plain,
-                                               kernel_channels, pack_stage, tiling_for)
+                                               kernel_channels, pack_stage,
+                                               rows_computed_share, tiling_for)
 from toucan_tpu_torch.kernels.stage import (calibrate_stage_scales, quantize_stage,
                                             quantized_stage, quantized_stage_plain)
 from toucan_tpu_torch.load import (GLOW_WEIGHT_NORM, interface_from_torch, load_aligner,
@@ -382,6 +387,9 @@ TOL_TF32_DEFAULT = 1e-5
 TOL_GRAPH = 1e-6
 GRAPH_ROUNDS = 3   # rounds of (eager, graph, graph, eager) in phase_graphs
 K2_FRAMES = 512
+# the interactive cells' typical vocoder bucket (6.3 s sentences, 13
+# receptive frames, 64-frame steps), at which K2 is also timed stage by stage
+K2_BUCKET_FRAMES = 448
 STAGE_SCALES = (8, 48, 192, 384)  # vocoder samples per mel frame after each stage
 # BigVGAN's stages at 512 channels: (samples per mel frame, channels)
 BIGVGAN_STAGES = tuple(zip(STAGE_SCALES, (256, 128, 64, 32)))
@@ -463,8 +471,8 @@ def bound(flops, nbytes, peak=F32_PEAK):
 
 # the kernels that run on the tensor cores, and the SASS instructions each
 # must hold: K1 split TF32 and its bf16 bias (HMMA) and its bf16 wgmma
-# (HGMMA), K2 split TF32 (HMMA), K3 and K4 int8 (IMMA) and bf16 (HMMA)
-TENSOR_CORE_KERNELS = {"flash_rel_attention": ("HMMA", "HGMMA"), "hifigan_stage": ("HMMA",),
+# (HGMMA), K2 split TF32 (HGMMA), K3 and K4 int8 (IMMA) and bf16 (HMMA)
+TENSOR_CORE_KERNELS = {"flash_rel_attention": ("HMMA", "HGMMA"), "hifigan_stage": ("HGMMA",),
                        "hifigan_stage_q": ("IMMA", "HMMA"), "hifigan_imcol": ("IMMA", "HMMA")}
 # the kernels whose int8 products must all be on the tensor cores: no IDP
 NO_DP4A = ("hifigan_imcol",)
@@ -608,20 +616,23 @@ def k2_error(x, sw):
 
 def phase_k2(dev, gen, vocoder, unit):
     """K2 against its plain version (18 f32 cuDNN convs) at the four stage
-    shapes of K2_FRAMES and of 2048 frames (the main path's), with the
-    tiling each launch took, on HiFiGAN's weights (timed) and on ``unit``,
-    the stages at unit gain.  The row is K2_FRAMES's totals; its error the
-    worst of both weights."""
+    shapes of K2_BUCKET_FRAMES, K2_FRAMES and 2048 frames (the main path's),
+    with the tiling and variant each launch took and the rows its convs
+    compute over those they deliver, on HiFiGAN's weights (timed) and on
+    ``unit``, the stages at unit gain.  The row is K2_FRAMES's totals; its
+    error the worst of both weights."""
     rows = {}
-    for frames in (K2_FRAMES, 2048):
+    for frames in (K2_BUCKET_FRAMES, K2_FRAMES, 2048):
         totals = dict(ms=0.0, plain_ms=0.0, flops=0, nbytes=0)
         worst, stage_ms = 0.0, []
         for i, scale in enumerate(STAGE_SCALES):
             sw = vocoder.stage_weights(i)
             c, t = sw.channels, scale * frames
             x = torch.randn(1, t, c, generator=gen, device=dev)
+            before = dict(hifigan_stage.variants)
             err, excess = k2_error(x, sw)
             err_u, excess_u = k2_error(x, unit[i])
+            variant = [k for k, n in hifigan_stage.variants.items() if n != before.get(k, 0)]
             worst = max(worst, err, err_u)
             ms = time_ms(lambda: hifigan_stage(x, sw), 3)
             plain_ms = time_ms(lambda: hifigan_stage_plain(x, sw), 3)
@@ -636,8 +647,11 @@ def phase_k2(dev, gen, vocoder, unit):
                       f"kernel_ms={ms:.3f} plain_ms={plain_ms:.3f} "
                       f"bound_ms={bound_ms:.3f} ({bound_by}, split TF32) f32_bound_ms={f32_ms:.3f} "
                       f"gflop={flops / 1e9:.1f} achieved_tflops={flops / ms / 1e9:.2f} "
+                      f"({100 * bound_ms / ms:.1f} % of the split-TF32 bound) "
                       f"tile={tl.tile} cluster={tl.cluster} channels_per_block={tl.block_channels} "
-                      f"clusters={tl.clusters} tiles={tl.jobs} "
+                      f"clusters={tl.clusters} tiles={tl.jobs} variant={variant} "
+                      f"rows_computed/delivered="
+                      f"{rows_computed_share(1, t, tl.tile, sw.kernel_sizes, sw.dilations):.3f} "
                       f"scratch_mb={tl.scratch_bytes(c) / 2**20:.1f}")
             if not (excess <= TOL_K2[0] and excess_u <= TOL_K2[0]):
                 raise AssertionError(f"K2 disagrees with its plain version at {frames} frames, "

@@ -250,9 +250,10 @@ def test_weight_split_is_two_tf32_parts():
             <= 2.0 ** -22 * w.double().abs()).all()
 
 
-# clusters of 4, 2 and 1 blocks the H100 runs at once with K2's shared
+# clusters of 8, 4, 2 and 1 blocks the H100 runs at once with K2's shared
 # memory, as cudaOccupancyMaxActiveClusters reports them (chip_smoke.py)
-H100_CLUSTERS = ((4, 30), (2, 66), (1, 132))
+H100_CLUSTERS = ((8, 15), (4, 30), (2, 66), (1, 132))
+HIFIGAN_STAGES = ((8, 256), (48, 128), (192, 64), (384, 32))  # (samples a frame, C)
 
 
 @pytest.mark.parametrize("clusters_in_flight", [None, H100_CLUSTERS], ids=["n_sm", "h100"])
@@ -261,20 +262,23 @@ H100_CLUSTERS = ((4, 30), (2, 66), (1, 132))
 def test_stage_tiling_fills_the_card(frames, b, clusters_in_flight):
     """At every stage shape of the main path (HiFiGAN, 512 channels: stage
     i has 256 / 2^i channels and 8, 48, 192, 384 samples per frame) on 132
-    SMs: enough tiles for every cluster slot the card has, or one tile
-    covering T; the halo of the widest stack; each block 64 or 32 channels
-    of a cluster of at most 4; the streams under the L2 budget."""
-    from toucan_tpu_torch.kernels.resstack import L2_SCRATCH_BYTES, stage_tiling
+    SMs: enough tiles for every cluster slot the card has but fewer than B
+    (a sample's tiles are a whole number, so 30 slots take 7 tiles each of
+    4 samples), or one tile covering T; the halo of the widest stack; each
+    block 128, 64 or 32 channels of a cluster of at most 8; the streams
+    under the L2 budget."""
+    from toucan_tpu_torch.kernels.resstack import L2_SCRATCH_BYTES, MAX_CLUSTER, stage_tiling
 
     ks, dil, n_sm = (3, 7, 11), (1, 3, 5), 132
     slots = dict(clusters_in_flight or ())
-    for scale, c in ((8, 256), (48, 128), (192, 64), (384, 32)):
+    for scale, c in HIFIGAN_STAGES:
         t = scale * frames
         tl = stage_tiling(b, t, c, n_sm, ks, dil, clusters_in_flight)
         assert tl.halo >= stage_halo(ks, dil) == 60
-        assert tl.cluster * tl.block_channels == c and tl.cluster <= 4
+        assert tl.cluster * tl.block_channels == c and tl.cluster <= MAX_CLUSTER
+        assert tl.block_channels in (128, 64, 32)
         assert tl.jobs == b * -(-t // tl.tile)
-        assert tl.jobs >= slots.get(tl.cluster, n_sm // tl.cluster) or tl.tile >= t
+        assert tl.jobs > slots.get(tl.cluster, n_sm // tl.cluster) - b or tl.tile >= t
         assert tl.clusters == min(tl.jobs, slots.get(tl.cluster, n_sm // tl.cluster))
         assert tl.scratch_bytes(c) <= L2_SCRATCH_BYTES
 
@@ -303,16 +307,17 @@ def test_wrappers_refuse_misaligned_views():
 
 
 def test_stage_tiling_takes_clusters_of_at_most_four():
-    """The cluster limit: C = 256 takes 4 blocks of 64 channels, C = 512
-    (a 1024-channel generator's stage 0) 8, Hopper's portable cluster size
-    and the kernel's limit, and C = 1024 raises rather than pick a cluster
-    the kernel rejects.  (Named for the limit of 4 it pinned before K2 took
-    clusters of 8.)"""
+    """The cluster limit: C = 256 takes 2 blocks of 128 channels, 4 of 64
+    or 8 of 32; C = 512 (a 1024-channel generator's stage 0) 4 of 128 or 8
+    of 64, Hopper's portable cluster size and the kernel's limit; C = 1024
+    raises rather than pick a cluster the kernel rejects.  (Named for the
+    limit of 4 it pinned before K2 took clusters of 8.)"""
     from toucan_tpu_torch.kernels.resstack import MAX_CLUSTER, stage_tiling
 
-    assert stage_tiling(1, 4096, 256, 132, (3, 7, 11), (1, 3, 5)).cluster == 4
+    tl = stage_tiling(1, 4096, 256, 132, (3, 7, 11), (1, 3, 5))
+    assert (tl.cluster, tl.block_channels) in ((2, 128), (4, 64), (8, 32))
     tl = stage_tiling(1, 4096, 512, 132, (3, 7, 11), (1, 3, 5))
-    assert (tl.cluster, tl.block_channels) == (MAX_CLUSTER, 64) and MAX_CLUSTER == 8
+    assert (tl.cluster, tl.block_channels) in ((4, 128), (MAX_CLUSTER, 64)) and MAX_CLUSTER == 8
     with pytest.raises(ValueError, match="channels, got 1024"):
         stage_tiling(1, 4096, 1024, 132, (3, 7, 11), (1, 3, 5))
 
@@ -320,7 +325,7 @@ def test_stage_tiling_takes_clusters_of_at_most_four():
 @pytest.mark.parametrize("c", [4, 8, 16, 20, 32, 48, 96, 160, 192, 256, 320, 384, 448, 512])
 def test_stage_tiling_takes_every_width(c):
     """Every C up to 512 gets a tiling at the kernel's width (C rounded up
-    to a multiple of 32 up to 128, of 64 past it): blocks of 64 or 32
+    to a multiple of 32 up to 128, of 64 past it): blocks of 128, 64 or 32
     channels, clusters of at most 8, at the 512-frame shape of a stage that
     wide and at 64 frames."""
     from toucan_tpu_torch.kernels.resstack import MAX_CLUSTER, kernel_channels, stage_tiling
@@ -330,7 +335,150 @@ def test_stage_tiling_takes_every_width(c):
     for t in (8 * 512 * 256 // max(c, 32), 64 * 8):
         tl = stage_tiling(1, t, c, 132, (3, 7, 11), (1, 3, 5))
         assert tl.cluster * tl.block_channels == wide and tl.cluster <= MAX_CLUSTER
-        assert tl.block_channels in (32, 64) and tl.jobs == -(-t // tl.tile)
+        assert tl.block_channels in (128, 64, 32) and tl.jobs == -(-t // tl.tile)
+
+
+@pytest.mark.parametrize("c", [32, 64, 96, 128, 192, 256, 320, 384, 448, 512])
+def test_stage_block_options_by_width(c):
+    """The options the chooser weighs at a kernel width: blocks of 128, 64
+    or 32 channels where C divides into at most 8 of them; every width up
+    to 512 has one."""
+    from toucan_tpu_torch.kernels.resstack import MAX_CLUSTER, _block_options
+
+    options = _block_options(c, 11, 5)
+    want = [(nb, c // nb) for nb in (128, 64, 32) if c % nb == 0 and c // nb <= MAX_CLUSTER]
+    assert options == want and options
+
+
+@pytest.mark.parametrize("frames,stage,variant,cluster,tile,jobs", [
+    (448, 0, "nb128", 2, 55, 66), (448, 1, "nb128", 1, 163, 132), (448, 2, "nb64", 1, 652, 132),
+    (448, 3, "nb32", 1, 1304, 132), (2048, 0, "nb128", 2, 249, 66), (2048, 1, "nb128", 1, 373, 264),
+    (2048, 2, "nb64", 1, 745, 528), (2048, 3, "nb32", 1, 1490, 528)])
+def test_stage_tiling_variant_and_tile_by_shape(frames, stage, variant, cluster, tile, jobs):
+    """The variant, cluster and tile the chooser takes at the served shapes
+    (the interactive cells' typical 448-frame bucket and 2048 frames) on
+    the H100's clusters in flight: the widest block a stage's channels
+    allow (blocks of 32 and 64 only at C = 32 and 64, whose wgmmas cannot
+    be wider), one wave of clusters that fills the card where the streams
+    fit the scratch budget, else the tile halved and the waves doubled."""
+    from toucan_tpu_torch.kernels.resstack import L2_SCRATCH_BYTES, stage_tiling
+
+    scale, c = HIFIGAN_STAGES[stage]
+    tl = stage_tiling(1, scale * frames, c, 132, (3, 7, 11), (1, 3, 5), H100_CLUSTERS)
+    assert (tl.variant, tl.cluster, tl.tile, tl.jobs) == (variant, cluster, tile, jobs)
+    assert tl.clusters == min(jobs, dict(H100_CLUSTERS)[cluster])
+    assert tl.scratch_bytes(c) <= L2_SCRATCH_BYTES
+
+
+@pytest.mark.parametrize("nb,k_max,d_max,fits", [
+    (128, 11, 5, True), (64, 11, 5, True), (32, 11, 5, True), (128, 3, 1, True),
+    (128, 11, 13, True), (128, 11, 14, False), (64, 11, 31, True), (64, 11, 32, False),
+    (32, 11, 51, True), (32, 11, 52, False)])
+def test_stage_shared_memory_budget(nb, k_max, d_max, fits):
+    """K2's shared memory (2 weight slots of k_max x 4 x NB x 16 bytes at NB
+    = 128, else 3; 2 window slots a warpgroup of 4 x (its half of the M
+    tile + (k_max - 1) d_max) x 16 bytes; two mbarriers a weight slot):
+    HiFiGAN's kernel sizes and dilations fit a block's 227 KB in every
+    variant (209, 164 and 113 KB at k = 11, d = 5); an option that does
+    not fit is not offered, and a stage no option fits raises."""
+    from toucan_tpu_torch.kernels.resstack import (SMEM_BYTES, _block_options, rows_per_pass,
+                                                   stage_smem_bytes, stage_tiling, weight_slots)
+
+    span = rows_per_pass(nb) // 2 + (k_max - 1) * d_max
+    assert rows_per_pass(nb) == (256 if nb == 32 else 128)
+    assert weight_slots(nb) == (2 if nb == 128 else 3)
+    assert stage_smem_bytes(nb, k_max, d_max) == \
+        weight_slots(nb) * (k_max * 4 * nb * 16 + 16) + 4 * 4 * span * 16
+    assert (stage_smem_bytes(nb, k_max, d_max) <= SMEM_BYTES) == fits
+    assert ((nb, 128 // nb) in _block_options(128, k_max, d_max)) == fits
+    if not fits and nb == 32:
+        with pytest.raises(ValueError, match="shared memory"):
+            stage_tiling(1, 4096, 128, 132, (3, 7, k_max), (1, 3, d_max))
+
+
+@pytest.mark.parametrize("nb", [128, 64, 32])
+def test_stage_packed_weights_layout(nb):
+    """The kernel's weight copy for blocks of NB channels: each conv's TF32
+    (big, small) pairs at [r, s, tap, big/small, h, n, e] for input channel
+    8 s + 4 h + e and output channel r NB + n, conv after conv, so one
+    block's step of 8 input channels is one contiguous run."""
+    from toucan_tpu_torch.kernels.resstack import pack_split_weights, split_tf32
+
+    rng = np.random.RandomState(11)
+    c, ks, dil = 128, (3, 7, 11), (1, 3, 5)
+    sw = _stage_weights(rng, c, ks, dil)
+    packed = pack_split_weights(sw, nb)
+    assert packed.shape == (2 * sw.w.numel(),) and packed.is_contiguous()
+    off = 0
+    for conv, (w, _, _) in enumerate(sw.conv_weights()):
+        k = w.shape[-1]
+        pairs = split_tf32(w.permute(2, 1, 0).contiguous())   # (tap, C_in, C_out, 2)
+        idx = np.random.RandomState(conv).randint(0, [k, c, c, 2], size=(16, 4))
+        for tap, ci, co, part in idx:
+            r, n = divmod(co, nb)
+            s, h, e = ci // 8, ci % 8 // 4, ci % 4
+            at = off + (((((r * (c // 8) + s) * k + tap) * 2 + part) * 2 + h) * nb + n) * 4 + e
+            assert packed[at] == pairs[tap, ci, co, part]
+        off += 2 * k * c * c
+    assert off == packed.numel()
+
+
+@pytest.mark.parametrize("t,tile,want", [(3584, 120, 1.3674), (3584, 224, 1.1959),
+                                         (4096, 4096, 1.0107), (100, 7, 7.5833)])
+def test_stage_rows_computed_share(t, tile, want):
+    """Rows the convs compute over the rows they deliver, weighted by taps:
+    stage 0 at 448 frames cut into 30 tiles of 120 rows recomputes x1.37 of
+    its rows (the parent's tiling there), into 16 of 224 x1.20; one tile
+    over T only its sequence edges; a ragged last tile counts its own rows."""
+    from toucan_tpu_torch.kernels.resstack import rows_computed_share
+
+    assert rows_computed_share(1, t, tile, (3, 7, 11), (1, 3, 5)) == pytest.approx(want, abs=1e-4)
+
+
+def test_stage_variants_count_with_launches(monkeypatch):
+    """``hifigan_stage.variants`` counts each launch under the kernel instance
+    it took, as ``build.count_launch`` counts the wrapper: at once outside a
+    capture, at each replay of a captured graph."""
+    from toucan_tpu_torch.kernels import build, resstack
+
+    monkeypatch.setattr(resstack.hifigan_stage, "variants", {})
+    build.count_launch(resstack._VARIANTS["nb64"])
+    assert resstack.hifigan_stage.variants == {"nb64": 1}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    with build.CaptureTally() as tally:
+        build.count_launch(resstack._VARIANTS["nb32"])
+        build.count_launch(resstack._VARIANTS["nb32"])
+    tally.replayed()
+    assert resstack.hifigan_stage.variants == {"nb64": 1, "nb32": 2}
+    assert set(resstack._VARIANTS) == {f"nb{nb}" for nb in resstack.BLOCK_CHANNELS}
+
+
+def test_stage_kernel_name_is_what_the_roofline_reads():
+    """``k2_roofline_pct`` finds K2's launches in the device trace by the name
+    ``stage_kernel``: the kernel the wrapper launches still has it (each
+    template instance), and K3's ``stage_q_kernel`` does not match."""
+    import re
+    from pathlib import Path
+
+    from bench_h100.metrics.k2_roofline_pct import PATTERN
+    from toucan_tpu_torch.kernels import build
+
+    names = {}
+    for src in ("hifigan_stage", "hifigan_stage_q"):
+        text = (Path(build.SRC_DIR) / f"{src}.cu").read_text()
+        names[src] = re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)\s*\(",
+                                text)
+        launched = re.findall(r"cudaLaunchKernelEx\([^,]+,\s*(\w+)", text) + \
+            re.findall(r"(\w+)(?:<[^>]*>)?<<<", text)
+        assert launched and set(launched) <= set(names[src]), (src, launched)
+    assert names["hifigan_stage"] == ["stage_kernel"]
+    for nb in (64, 32):
+        traced = f"void (anonymous namespace)::stage_kernel<{nb}>(float const*, float const*, " \
+                 "float const*, float*, float*, (anonymous namespace)::StageArgs)"
+        assert re.search(PATTERN, traced)
+    for name in names["hifigan_stage_q"]:
+        assert not re.search(PATTERN, f"void (anonymous namespace)::{name}<1>(int)")
 
 
 def _sequential_conv1d(x, w, b, padding=0, dilation=1):
