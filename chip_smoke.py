@@ -1432,28 +1432,22 @@ def buckets(iface):
 def warm_launches(iface, bucket, per_call):
     """The launches of a new bucket's warm-up, of ``per_call`` (one
     synthesis): the vocoder's in a ``_vocoder_cache`` bucket, the acoustic
-    model's (K1) in an ``_e2e_cache`` bucket of a cut step, all of them in
-    a fused step's (a vocoder without receptive frames)."""
+    model's (K1) in an ``_e2e_cache`` bucket."""
     if any(bucket is b for b in iface._vocoder_cache.values()):
         return {k: c for k, c in per_call.items() if k != "k1"}
-    if iface._reach is not None:
-        return {k: c for k, c in per_call.items() if k == "k1"}
-    return per_call
+    return {k: c for k, c in per_call.items() if k == "k1"}
 
 
 def call_graphs(iface, text):
     """The graphs a steady ``__call__`` of ``text`` replays: its step's
-    ``_e2e_cache`` bucket and, where the vocoder is cut, the
-    ``_vocoder_cache`` bucket of its mel length (from its durations, which
-    the noise does not move)."""
+    ``_e2e_cache`` bucket and the ``_vocoder_cache`` bucket of its mel
+    length (from its durations, which the noise does not move)."""
     n_pad = _round_up(len(iface.text2phone.string_to_features(text)), PHONE_BUCKET)
     max_frames = n_pad * FRAMES_PER_PHONE
-    graphs = [iface._e2e_cache[(1, n_pad, max_frames, False, False, False)].graph]
-    if iface._reach is not None:
-        (*_, lens), _ = iface._dispatch_call(text)
-        frames = iface._cut_frames(int(lens[0]), max_frames)
-        graphs.append(iface._vocoder_cache[(1, frames)].graph)
-    return graphs
+    (*_, lens), _ = iface._dispatch_call(text)
+    frames = iface._cut_frames(int(lens[0]), max_frames)
+    return [iface._e2e_cache[(1, n_pad, max_frames, False, False, False)].graph,
+            iface._vocoder_cache[(1, frames)].graph]
 
 
 def per_synthesis(n, **kernels):

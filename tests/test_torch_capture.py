@@ -32,7 +32,7 @@ from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
 from toucan_tpu_torch.nn.positional import _cached_table, rel_positional_encoding
 from toucan_tpu_torch.weights import hifigan_from_jax, toucan_tts_from_jax
 
-from test_torch_interface import TEXTS, TINY, _batch_inputs
+from test_torch_interface import TEXTS, TINY, _batch_inputs, whole_step
 from test_torch_modules import seeded_variables
 
 torch.set_num_threads(2)
@@ -79,7 +79,8 @@ def eager(port, fn):
 @pytest.mark.parametrize("knobs", KNOBS)
 def test_knob_tensor_matches_jax(variables, port, knobs):
     """The knobs as one (4,) tensor: durations, pitch, energy, mel and wave
-    of the fused step equal the JAX interface's jitted step (knobs traced)."""
+    of the port's step over every decoded frame equal the JAX interface's
+    jitted step (knobs traced)."""
     tts_vars, voc_vars, emb = variables
     jax_iface = JaxInterface(tts_vars, voc_vars, None, default_embedding=emb,
                              config=JaxConfig(**TINY), vocoder=JaxHiFiGAN(channels=64),
@@ -93,9 +94,9 @@ def test_knob_tensor_matches_jax(variables, port, knobs):
         jax_iface.tts_variables, jax_iface.vocoder_variables, jnp.asarray(text),
         jnp.asarray(lens), jnp.asarray(utt), jnp.asarray(lang), jnp.asarray(noise),
         jnp.asarray(knobs, jnp.float32))
-    got = port._e2e(torch.tensor(text), torch.tensor(lens, dtype=torch.long), 512,
-                    torch.tensor(utt), torch.tensor(lang, dtype=torch.long), torch.tensor(noise),
-                    torch.tensor(knobs, dtype=torch.float32))
+    got = whole_step(port, torch.tensor(text), torch.tensor(lens, dtype=torch.long), 512,
+                     torch.tensor(utt), torch.tensor(lang, dtype=torch.long), torch.tensor(noise),
+                     torch.tensor(knobs, dtype=torch.float32))
     want = [np.asarray(a) for a in want]
     got = [a.numpy() for a in got]
     np.testing.assert_array_equal(got[2], want[2])      # durations

@@ -51,7 +51,7 @@ from toucan_tpu_torch.utils.device import matmul_precision
 from toucan_tpu_torch.weights import hifigan_from_jax, toucan_tts_from_jax
 
 from test_torch_bigvgan import SMALL, _inference, _vocoder
-from test_torch_interface import IPA, TINY, TEXTS
+from test_torch_interface import IPA, TINY, TEXTS, whole_step
 from test_torch_modules import seeded_variables
 
 torch.set_num_threads(2)
@@ -225,9 +225,9 @@ def test_bf16_interface_matches_jax_bf16(trio):
         res = it._e2e_fn(32, 512, True)(it.tts_variables, it.vocoder_variables, *args,
                                         durations=jnp.asarray(durations))
         outs[name] = [np.asarray(a, np.float32) for a in res]
-    got = port._e2e(torch.tensor(text), torch.tensor(lens, dtype=torch.long), 512,
-                    torch.tensor(utt), torch.tensor(lang, dtype=torch.long),
-                    torch.tensor(noise), knobs, durations=torch.tensor(durations))
+    got = whole_step(port, torch.tensor(text), torch.tensor(lens, dtype=torch.long), 512,
+                     torch.tensor(utt), torch.tensor(lang, dtype=torch.long),
+                     torch.tensor(noise), knobs, durations=torch.tensor(durations))
     assert all(g.dtype in (torch.float32, torch.int32, torch.int64) for g in got)
     got = [g.numpy().astype(np.float32) for g in got]
     np.testing.assert_array_equal(got[2], outs["j16"][2])     # durations as given

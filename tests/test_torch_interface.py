@@ -22,7 +22,7 @@ from toucan_tpu.models.toucan_tts import ToucanTTSConfig as JaxConfig
 from toucan_tpu.models.vocoders.hifigan import HiFiGANGenerator as JaxHiFiGAN
 from toucan_tpu_torch.frontend.inventory import feature_index
 from toucan_tpu_torch.infer.interface import (SAMPLES_PER_FRAME, SENTENCE_JOIN_SILENCE,
-                                              ToucanTTSInterface)
+                                              ToucanTTSInterface, acoustic_step)
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.bigvgan import BigVGAN
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
@@ -78,6 +78,21 @@ def test_call_matches_jax_interface(pair, knobs):
         np.testing.assert_allclose(g, w, atol=3e-4)
 
 
+def whole_step(port, *args, **kwargs):
+    """Text -> wave over every decoded frame, as the JAX interface's step
+    computes it: the port's acoustic step (``acoustic_step``'s arguments),
+    then its vocoder on the whole masked mel.  Returns (wave, after,
+    durations, pitch, energy, mel_lengths)."""
+    with torch.inference_mode():
+        mel, *outs = acoustic_step(port.model, *args, **kwargs)
+        return (port._vocoder_call(mel)[..., 0], *outs)
+
+
+def utterance(port, b=1):
+    """The port's default utterance embedding, (b, 64)."""
+    return torch.tensor(np.tile(port.default_utterance_embedding[None], (b, 1)))
+
+
 def _batch_inputs(iface):
     phones = [iface.text2phone.string_to_features(t, input_phonemes=True) for t in TEXTS]
     lens = np.asarray([len(p) for p in phones], np.int32)
@@ -99,9 +114,9 @@ def test_fused_batch_matches_jax(pair):
         jax_iface.tts_variables, jax_iface.vocoder_variables, jnp.asarray(text),
         jnp.asarray(lens), jnp.asarray(utt), jnp.asarray(lang), jnp.asarray(noise),
         jnp.asarray(knobs, jnp.float32))
-    got = port._e2e(torch.tensor(text), torch.tensor(lens, dtype=torch.long), 512,
-                    torch.tensor(utt), torch.tensor(lang, dtype=torch.long),
-                    torch.tensor(noise), knobs)
+    got = whole_step(port, torch.tensor(text), torch.tensor(lens, dtype=torch.long), 512,
+                     torch.tensor(utt), torch.tensor(lang, dtype=torch.long),
+                     torch.tensor(noise), knobs)
     want = [np.asarray(a) for a in want]
     got = [a.numpy() for a in got]
     np.testing.assert_array_equal(got[2], want[2])      # durations
@@ -115,27 +130,27 @@ def test_synthesize_batch_rows_equal_single_runs(pair):
     port.generator.manual_seed(5)
     waves = port.synthesize_batch(TEXTS, input_is_phones=True)
     port.generator.manual_seed(5)
-    noise = port._noise(3, 512)
+    noise = port._draws(3, 32, 512)["noise"]
     text, lens = _batch_inputs(port)
-    utt = port._utt(1)
+    utt = utterance(port)
     lang = torch.tensor([[port.lang_id]])
     for i, w in enumerate(waves):
-        single, *_, mel_len = port._e2e(torch.tensor(text[i:i + 1]),
-                                        torch.tensor(lens[i:i + 1], dtype=torch.long), 512,
-                                        utt, lang, noise[i:i + 1])
+        single, *_, mel_len = whole_step(port, torch.tensor(text[i:i + 1]),
+                                         torch.tensor(lens[i:i + 1], dtype=torch.long), 512,
+                                         utt, lang, noise[i:i + 1])
         assert len(w) == int(mel_len[0]) * 384 > 0
         np.testing.assert_allclose(w, single[0, :len(w)].numpy(), atol=1e-5)
 
 
 def test_vocode_equals_the_fused_path(pair):
-    """Vocoding the trimmed mel alone equals the fused text -> wave call:
+    """Vocoding the trimmed mel alone equals vocoding the whole masked mel:
     the zeroed padding lies outside every kept sample's receptive field."""
     _, port = pair
     text, lens = _batch_inputs(port)
     noise = torch.tensor(0.8 * np.random.RandomState(6).randn(1, 512, 80), dtype=torch.float32)
-    wave, after, *_, mel_len = port._e2e(torch.tensor(text[:1]),
-                                         torch.tensor(lens[:1], dtype=torch.long), 512,
-                                         port._utt(1), torch.tensor([[port.lang_id]]), noise)
+    wave, after, *_, mel_len = whole_step(port, torch.tensor(text[:1]),
+                                          torch.tensor(lens[:1], dtype=torch.long), 512,
+                                          utterance(port), torch.tensor([[port.lang_id]]), noise)
     n = int(mel_len[0])
     np.testing.assert_allclose(port._vocode(after[0, :n].numpy()), wave[0, :n * 384].numpy(),
                                atol=1e-5)
@@ -257,7 +272,7 @@ def step_inputs(port, frames: int):
     durations[0, speaking] = 1
     durations[0, speaking[0]] += frames - len(speaking)
     return dict(text=torch.tensor(text), text_lengths=torch.tensor([len(phones)]),
-                utt=port._utt(1), lang=torch.tensor([[port.lang_id]]),
+                utt=utterance(port), lang=torch.tensor([[port.lang_id]]),
                 knobs=torch.ones(4), durations=torch.tensor(durations), pitch=None, energy=None)
 
 
@@ -267,7 +282,7 @@ def test_cut_step_equals_the_whole_padded_mel(make):
     """A step whose mel ends R frames before its frame bucket (the least
     margin the cut leaves, R the vocoder's receptive frames) vocodes that
     bucket alone, in its bucket and eagerly alike, and delivers the
-    samples of the whole padded mel vocoded (``_e2e``)."""
+    samples of the whole padded mel vocoded."""
     port = port_with(make(), glow=False)
     reach = port.vocoder.receptive_frames
     length = 128 - reach
@@ -281,7 +296,7 @@ def test_cut_step_equals_the_whole_padded_mel(make):
     eager = port._run_e2e(512, noise, **inputs)
     port._eager = False
     np.testing.assert_array_equal(wave.numpy(), eager[0].numpy())
-    whole, *_ = port._e2e(max_frames=512, noise=noise, **inputs)
+    whole, *_ = whole_step(port, max_frames=512, noise=noise, **inputs)
     assert whole.shape == (1, 512 * SAMPLES_PER_FRAME)
     keep = length * SAMPLES_PER_FRAME
     np.testing.assert_allclose(wave[0, :keep].numpy(), whole[0, :keep].numpy(), atol=1e-5)
@@ -302,15 +317,20 @@ class Foreign(nn.Module):
                                   Foreign], ids=["imcol-int8", "foreign"])
 def test_step_stays_uncut_without_receptive_frames(make):
     """K4's int8 stages (their scales see every row of a window) and a
-    vocoder module without ``receptive_frames`` vocode every decoded
-    frame in one fused step, and ``steps_uncut`` counts each such step."""
+    vocoder module without ``receptive_frames`` vocode every decoded frame,
+    through the acoustic step's bucket and the vocoder's bucket of all the
+    step's frames: the wave is the vocoder's of the acoustic step's whole
+    mel, and ``steps_uncut`` counts each such step."""
     port = port_with(make())
     assert port._reach is None
-    wave, *_, lens = port._run_e2e(512, torch.zeros(1, 512, 80), **step_inputs(port, 40))
+    noise, inputs = torch.zeros(1, 512, 80), step_inputs(port, 40)
+    wave, *_, lens = port._run_e2e(512, noise, **inputs)
     assert int(lens[0]) == 40 and wave.shape == (1, 512 * SAMPLES_PER_FRAME)
-    assert port.counters["steps_uncut"] == 1 and not port._vocoder_cache
-    (key, bucket), = port._e2e_cache.items()
-    assert key == (1, 32, 512, True, False, False) and bucket.step.func == port._e2e
+    assert port.counters["steps_uncut"] == 1
+    assert list(port._e2e_cache) == [(1, 32, 512, True, False, False)]
+    assert list(port._vocoder_cache) == [(1, 512)]
+    whole, *_ = whole_step(port, max_frames=512, noise=noise, **inputs)
+    np.testing.assert_array_equal(wave.numpy(), whole.numpy())
 
 
 def test_read_to_file_wav_equals_the_calls_joined(pair, tmp_path):

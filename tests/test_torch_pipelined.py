@@ -2,9 +2,10 @@
 
 A tiny ToucanTTS and HiFiGAN with seeded weights:
 
-- ``make_stage_fns``: the acoustic stage then the vocoder stage equal the
-  interface's fused step (``ToucanTTSInterface._e2e``) bit for bit, mel,
-  lengths and wave, frames past each length zeroed;
+- ``make_stage_fns``: the acoustic stage gives the interface's acoustic
+  step's mel (through its bucket, and eagerly) bit for bit, frames past
+  each length zeroed, and the vocoder stage the wave of the interface's
+  text -> wave step (``ToucanTTSInterface._run_e2e``), lengths equal;
 - ``PipelinedSynthesizer`` on ``["cpu", "cpu"]`` (two stages, ``two_stage``)
   and on ``["cpu"]`` (one): a stream of six batches, each wave within 1e-6
   of its standalone dispatch through the stage functions (JAX's
@@ -17,7 +18,7 @@ import numpy as np
 import pytest
 import torch
 
-from toucan_tpu_torch.infer.interface import ToucanTTSInterface
+from toucan_tpu_torch.infer.interface import ToucanTTSInterface, acoustic_step
 from toucan_tpu_torch.infer.pipelined import PipelinedSynthesizer, make_stage_fns
 from toucan_tpu_torch.models.toucan_tts import ToucanTTS, ToucanTTSConfig
 from toucan_tpu_torch.models.vocoders.hifigan import HiFiGANGenerator
@@ -55,10 +56,15 @@ def test_stage_functions_equal_the_fused_step(models):
                                config=ToucanTTSConfig(**TINY), vocoder=HiFiGANGenerator(**VOCODER),
                                device="cpu")
     text, lens, utt, lang, noise, knobs = batch(1)
-    wave, after, _, _, _, mel_lens = iface._e2e(text, lens, FRAMES, utt, lang, noise, knobs)
+    inputs = dict(text=text, text_lengths=lens, utt=utt, lang=lang, knobs=knobs)
+    wave, after, _, _, _, mel_lens = iface._run_e2e(FRAMES, noise, **inputs)
+    bucket_mel = iface._e2e_bucket(FRAMES, inputs)(noise=noise, **inputs)[0]
+    eager_mel = acoustic_step(iface.model, max_frames=FRAMES, noise=noise, **inputs)[0]
     acoustic, vocode = make_stage_fns(iface.model, iface.vocoder, FRAMES)
     mel, got_lens = acoustic(text, lens, utt, lang, noise, knobs)
     assert torch.equal(got_lens, mel_lens)
+    assert torch.equal(mel, bucket_mel) and torch.equal(mel, eager_mel)
+    assert wave.shape == (2, FRAMES * 384)
     for i, n in enumerate(mel_lens.tolist()):
         assert torch.equal(mel[i, :n], after[i, :n]) and not mel[i, n:].any()
     assert torch.equal(vocode(mel), wave)

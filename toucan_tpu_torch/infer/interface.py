@@ -8,42 +8,47 @@ the prosody-control knobs, per-phone prosody overrides, batched synthesis,
 BigVGAN vocoder and ``quantize_vocoder`` (int8 HiFiGAN stages).  The
 acoustic model is ``ToucanTTS`` or, with ``acoustic="stochastic"``,
 ``StochasticToucanTTS``, whose spline flows sample pitch, energy and
-durations from the flows' noise (drawn, as the glow's, from the
-interface's generator into the bucket's buffers before each replay).  Inputs are
-padded to the same buckets as the JAX interface (32 phones, 16 frames per
-phone), so the acoustic model computes on the same shapes.  A step runs
-in two halves: the acoustic model at 16 frames a padded phone gives the
-mel, zeroed past each length; the host reads the lengths (one round trip
-a step); and the vocoder runs over the first F frames of the mel alone,
-F the smallest frame bucket (64-frame steps to 1024, 512-frame steps
-above: ``_frame_bucket``) that holds the longest length plus the
-vocoder's ``receptive_frames``.  The delivered samples read no frame past
-that, so they are those of the whole padded mel.  A vocoder that gives no
-receptive frames (a module without the property, or a HiFiGAN whose int8
-K4 stages take their scales from every row) runs one fused step over
-every padded frame, as the JAX interface does.  Every entry point runs
-its convs and matmuls under the interface's ``matmul_precision``
-(``utils.device.matmul_precision``: "float32" by default, IEEE f32;
-"default" lets cuDNN and cuBLAS use TF32, as JAX's default precision does
-on an NVIDIA card) whatever the caller's TF32 settings, and leaves those
-settings as it found them.  ``dtype`` (``torch.bfloat16``) is the acoustic
-model's and a vocoder named by string's compute dtype, as the JAX
-interface's ``dtype``; the GST, a vocoder module passed in and the
-returned waves, mels and prosody stay f32.
+durations from the flows' noise; ``acoustic_step`` alone calls either.
+
+Every entry point takes text to wave by one path.  ``_stage`` pads the
+phones to the same buckets as the JAX interface (32 phones, 16 frames per
+phone), so the acoustic model computes on the same shapes, and copies the
+step's inputs to the device.  ``_run_e2e`` runs the acoustic step at 16
+frames a padded phone, which gives the mel zeroed past each length; the
+host reads the lengths (one round trip a step); and the vocoder runs over
+the first F frames of the mel alone, F the smallest frame bucket (64-frame
+steps to 1024, 512-frame steps above: ``_frame_bucket``) that holds the
+longest length plus the vocoder's ``receptive_frames``.  The delivered
+samples read no frame past that, so they are those of the whole padded
+mel.  A vocoder that gives no receptive frames (a module without the
+property, or a HiFiGAN whose int8 K4 stages take their scales from every
+row) runs over every decoded frame, without the round trip.  ``_noise``
+says which noise a step draws from the interface's generator, of what
+shape and in what order (the stochastic model's flows', then the glow's);
+``_fetch`` cuts each wave at its mel length and copies it to the host.
+Every entry point runs its convs and matmuls under the interface's
+``matmul_precision`` (``utils.device.matmul_precision``: "float32" by
+default, IEEE f32; "default" lets cuDNN and cuBLAS use TF32, as JAX's
+default precision does on an NVIDIA card) whatever the caller's TF32
+settings, and leaves those settings as it found them.  ``dtype``
+(``torch.bfloat16``) is the acoustic model's and a vocoder named by
+string's compute dtype, as the JAX interface's ``dtype``; the GST, a
+vocoder module passed in and the returned waves, mels and prosody stay
+f32.
 
 As the JAX interface jits one function per bucket, the port keeps one
 ``infer.capture.Bucket`` per (batch size, phone bucket, frames decoded,
 which of durations/pitch/energy were given) in ``_e2e_cache``, the
-acoustic half (or the fused step), and one per (batch size, vocoder frame
-bucket) in ``_vocoder_cache``: on the card a CUDA graph, captured at
-the bucket's first use or by ``precompile`` and replayed after that; on the
-CPU the same buckets run eagerly.  All graphs of an interface capture into
-one memory pool, so a new bucket adds only what its graph needs beyond
-what the pool already holds.  The knobs are a (4,) tensor that only
-the device reads, so they never make a new bucket.  ``_dispatch_call``
-waits for a sentence's acoustic half only, and ``read_to_file`` enqueues
-every sentence's vocoder before it fetches the first wave.  A graph fixes
-the vocoder's mode and the precision policy at its capture:
+acoustic step, and one per (batch size, vocoder frame bucket) in
+``_vocoder_cache``: on the card a CUDA graph, captured at the bucket's
+first use or by ``precompile`` and replayed after that; on the CPU the
+same buckets run eagerly.  All graphs of an interface capture into one
+memory pool, so a new bucket adds only what its graph needs beyond what
+the pool already holds.  The knobs are a (4,) tensor that only the device
+reads, so they never make a new bucket.  ``_dispatch_call`` waits for a
+sentence's acoustic step only, and ``read_to_file`` enqueues every
+sentence's vocoder before it fetches the first wave.  A graph fixes the
+vocoder's mode and the precision policy at its capture:
 ``quantize_vocoder`` and setting ``matmul_precision`` clear the caches.
 
 Each layer of a request runs in a span (``utils.profiling.span``), free
@@ -110,6 +115,36 @@ def _frame_bucket(frames: int) -> int:
     of 512 above (a multiple of 512 holds every phone bucket's 16 frames a
     phone), so the rare long sentence costs ``precompile`` few graphs."""
     return _round_up(frames, 64 if frames <= FINE_FRAMES else 512)
+
+
+@torch.inference_mode()
+def acoustic_step(model, text, text_lengths, max_frames: int, utt, lang, noise,
+                  knobs=(1.0,) * 4, durations=None, pitch=None, energy=None, flow_noise=None):
+    """Text -> (mel, after, durations, pitch, energy, mel_lengths) of
+    ``max_frames`` decoded frames: the acoustic half of a step, the step of
+    an ``_e2e_cache`` bucket and ``infer.pipelined``'s acoustic stage.
+    ``mel`` is ``after`` zeroed past each length; both are f32 whatever
+    the model's dtype, as in JAX (``interface.py:239``).  Tensors on the
+    model's device.  A ``ToucanTTS`` takes ``knobs``, the (duration, pitch
+    variance, energy variance, pause) scales as a (4,) tensor or floats,
+    and the given ``durations``, ``pitch`` and ``energy``; a
+    ``StochasticToucanTTS`` samples its prosody from ``flow_noise``, the
+    (3, B, T, 2) draws of its flows."""
+    if isinstance(model, StochasticToucanTTS):
+        _, after, dur, pit, ene, lens = model.infer(
+            text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
+            glow_noise=noise, flow_noise=tuple(flow_noise))
+    else:
+        _, after, dur, pit, ene, lens = model.infer(
+            text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
+            gold_durations=durations, gold_pitch=pitch, gold_energy=energy,
+            duration_scaling_factor=knobs[0], pitch_variance_scale=knobs[1],
+            energy_variance_scale=knobs[2], pause_duration_scaling_factor=knobs[3],
+            glow_noise=noise)
+    after = after.float()
+    mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
+    mel = torch.where(mask, after, torch.zeros((), device=after.device))
+    return mel, after, dur, pit, ene, lens
 
 
 def _under_policy(method):
@@ -193,7 +228,7 @@ class ToucanTTSInterface:
         self.set_language(language)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self._voc_act_scales = None  # set by quantize_vocoder (int8 stages)
-        self._e2e_cache = {}         # text -> mel (or fused text -> wave) buckets
+        self._e2e_cache = {}         # text -> mel buckets (the acoustic step)
         self._vocoder_cache = {}     # mel -> wave buckets, by (rows, frames)
         self._clear_caches()
         self._eager = False          # run every call eagerly, no bucket (comparisons)
@@ -302,16 +337,10 @@ class ToucanTTSInterface:
     @torch.inference_mode()
     def _calibration_mel(self, text: str) -> torch.Tensor:
         phones = self.text2phone.string_to_features(text, input_phonemes=True)
-        n = len(phones)
-        n_pad = _round_up(n, PHONE_BUCKET)
-        text_arr = np.zeros((1, n_pad, phones.shape[1]), np.float32)
-        text_arr[0, :n] = phones
+        inputs, n_pad = self._stage([phones], self._refuse_prosody((1.0,) * 4))
         max_frames = n_pad * FRAMES_PER_PHONE
-        flow_noise = self._flow_noise(1, n_pad) if self.stochastic else None
-        after, *_, lens = self._acoustic(
-            self._tensor(text_arr), self._tensor([n], torch.int64), max_frames, self._utt(1),
-            self._lang([self.lang_id]), self._noise(1, max_frames), (1.0,) * 4,
-            flow_noise=flow_noise)
+        _, after, *_, lens = acoustic_step(self.model, max_frames=max_frames,
+                                           **self._draws(1, n_pad, max_frames), **inputs)
         return after[:, :int(lens[0])]
 
     def _vocoder_call(self, mel):
@@ -338,27 +367,52 @@ class ToucanTTSInterface:
         """A host array on the interface's device.  To the card it goes
         through pinned memory without waiting for the device, so a caller
         can enqueue a call while earlier ones still run."""
-        if x is None:
-            return None
         t = torch.as_tensor(np.asarray(x), dtype=dtype)
         if self.device.type != "cuda":
             return t
         return t.pin_memory().to(self.device, non_blocking=True)
 
-    def _lang(self, ids):
-        """(B, 1) language ids, or None where the model has no language
-        embedding."""
-        return None if self.lang_id is None else self._tensor([[i] for i in ids], torch.int64)
+    def _stage(self, phones, knobs, utt=None, lang_ids=None, durations=None, pitch=None,
+               energy=None):
+        """A step's inputs on the device, named as ``acoustic_step``'s
+        arguments, and its phone bucket: the (n, features) arrays of
+        ``phones`` padded to the phone bucket of the longest, and their
+        lengths; ``utt`` (B, E), default the interface's embedding;
+        ``lang_ids``, one a row, default the interface's language (None
+        where the model has no language embedding); ``knobs`` as
+        ``_refuse_prosody`` returns them; and the given ``durations``,
+        ``pitch`` and ``energy``, one array a row over its phones, or
+        None."""
+        b = len(phones)
+        lengths = np.asarray([len(p) for p in phones], np.int64)
+        n_pad = _round_up(int(lengths.max()), PHONE_BUCKET)
+
+        def padded(rows, dtype=torch.float32):
+            if rows is None:
+                return None
+            rows = [np.asarray(row, np.float32) for row in rows]
+            out = np.zeros((b, n_pad) + rows[0].shape[1:], np.float32)
+            for i, (row, n) in enumerate(zip(rows, lengths)):
+                out[i, :n] = row
+            return self._tensor(out, dtype)
+
+        if utt is None and self.default_utterance_embedding is not None:
+            utt = np.tile(self.default_utterance_embedding[None], (b, 1))
+        if utt is not None:
+            utt = self._tensor(np.asarray(utt, np.float32).reshape(b, -1))
+        if lang_ids is None:
+            lang_ids = [self.lang_id] * b
+        lang = None if self.lang_id is None else self._tensor([[i] for i in lang_ids], torch.int64)
+        inputs = dict(text=padded(phones), text_lengths=self._tensor(lengths, torch.int64),
+                      utt=utt, lang=lang, knobs=None if knobs is None else self._tensor(knobs),
+                      durations=padded(durations, torch.int32), pitch=padded(pitch),
+                      energy=padded(energy))
+        return inputs, n_pad
 
     def _draw_noise(self, buf: torch.Tensor):
         """Fill buf with glow noise, N(0, 0.8^2), from the interface's generator."""
         torch.randn(buf.shape, generator=self.generator, out=buf)
         buf.mul_(0.8)
-
-    def _noise(self, b: int, max_frames: int) -> torch.Tensor:
-        buf = torch.empty((b, max_frames, self.config.mel_channels), device=self.device)
-        self._draw_noise(buf)
-        return buf
 
     def _draw_flow_noise(self, buf: torch.Tensor):
         """Fill buf (3, B, T, 2) with the pitch, energy and duration flows'
@@ -366,101 +420,73 @@ class ToucanTTSInterface:
         for part in buf:
             torch.randn(part.shape, generator=self.generator, out=part)
 
-    def _flow_noise(self, b: int, phones: int) -> torch.Tensor:
-        buf = torch.empty((len(FLOWS), b, phones, 2), device=self.device)
-        self._draw_flow_noise(buf)
-        return buf
+    def _noise(self, b: int, phones: int, max_frames: int) -> dict:
+        """The noise a step of ``b`` rows, ``phones`` padded phones and
+        ``max_frames`` decoded frames takes, in the order the generator
+        fills it: {argument: (shape, drawer)}, the stochastic model's
+        flows' (3, B, phones, 2), then the glow's (B, frames, 80).  The
+        drawers are looked up on the interface at each step."""
+        noise = {}
+        if self.stochastic:
+            noise["flow_noise"] = ((len(FLOWS), b, phones, 2), self._draw_flow_noise)
+        noise["noise"] = ((b, max_frames, self.config.mel_channels), self._draw_noise)
+        return noise
+
+    def _draws(self, b: int, phones: int, max_frames: int, eager: bool = True, **given) -> dict:
+        """A step's noise arguments (``_noise``): each as ``given`` where
+        that is a tensor, else drawn now into a new buffer or, not
+        ``eager``, the drawer with which a bucket fills its own."""
+        draws = {}
+        for name, (shape, draw) in self._noise(b, phones, max_frames).items():
+            if given.get(name) is not None:
+                draws[name] = given[name]
+            elif eager:
+                draws[name] = torch.empty(shape, device=self.device)
+                draw(draws[name])
+            else:
+                draws[name] = draw
+        return draws
 
     def _refuse_prosody(self, knobs, durations=None, pitch=None, energy=None):
-        """A stochastic interface's model samples its prosody: raise where a
-        call asks for a knob other than 1 or gives durations, pitch or
-        energy."""
-        if self.stochastic and (any(k != 1.0 for k in knobs)
-                                or any(x is not None for x in (durations, pitch, energy))):
+        """The knobs a step takes: ``knobs``, or None on a stochastic
+        interface, whose model samples its prosody: there a knob other than
+        1 or given durations, pitch or energy raise ValueError."""
+        if not self.stochastic:
+            return knobs
+        if any(k != 1.0 for k in knobs) or any(x is not None for x in (durations, pitch, energy)):
             raise ValueError("a stochastic interface takes no prosody knobs other than 1 "
                              "and no given durations, pitch or energy")
+        return None
 
     @torch.inference_mode()
-    def _e2e(self, text, text_lengths, max_frames: int, utt, lang, noise, knobs=(1.0,) * 4,
-             durations=None, pitch=None, energy=None, flow_noise=None):
-        """Text -> mel -> wave on the device over every decoded frame: the
-        step of an ``_e2e_cache`` bucket where the vocoder gives no
-        receptive frames.  Tensors on ``self.device``; ``knobs`` the
-        (duration, pitch variance, energy variance, pause) scales, a (4,)
-        tensor or floats; ``flow_noise`` (3, B, T, 2) the stochastic
-        model's flow noise.  Returns (wave (B, 384*max_frames), after,
-        durations, pitch, energy, mel_lengths); the mel handed to the
-        vocoder and the one returned are f32 whatever the model's dtype, as
-        in JAX (``interface.py:239``)."""
-        mel, *outs = self._mel_step(text, text_lengths, max_frames, utt, lang, noise, knobs,
-                                    durations, pitch, energy, flow_noise)
-        return (self._vocoder_call(mel)[..., 0], *outs)
-
-    @torch.inference_mode()
-    def _mel_step(self, text, text_lengths, max_frames: int, utt, lang, noise,
-                  knobs=(1.0,) * 4, durations=None, pitch=None, energy=None, flow_noise=None):
-        """The acoustic half of ``_e2e``, the step of an ``_e2e_cache``
-        bucket where the vocoder is cut: (the mel zeroed past each length,
-        after, durations, pitch, energy, mel_lengths)."""
-        after, dur, pit, ene, lens = self._acoustic(
-            text, text_lengths, max_frames, utt, lang, noise, knobs, durations, pitch, energy,
-            flow_noise)
-        mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
-        mel = torch.where(mask, after, torch.zeros((), device=after.device))
-        return mel, after, dur, pit, ene, lens
-
-    def _acoustic(self, text, text_lengths, max_frames: int, utt, lang, noise, knobs,
-                  durations=None, pitch=None, energy=None, flow_noise=None):
-        """Text -> (after (f32), durations, pitch, energy, mel_lengths); the
-        stochastic model samples its prosody from ``flow_noise``."""
-        if self.stochastic:
-            _, after, dur, pit, ene, lens = self.model.infer(
-                text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
-                glow_noise=noise, flow_noise=tuple(flow_noise))
-            return after, dur, pit, ene, lens
-        _, after, dur, pit, ene, lens = self.model.infer(
-            text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
-            gold_durations=durations, gold_pitch=pitch, gold_energy=energy,
-            duration_scaling_factor=knobs[0], pitch_variance_scale=knobs[1],
-            energy_variance_scale=knobs[2], pause_duration_scaling_factor=knobs[3],
-            glow_noise=noise)
-        return after.float(), dur, pit, ene, lens
-
-    @torch.inference_mode()
-    def _longform(self, max_frames: int, noise=None, **inputs):
-        """The acoustic model, then its mel vocoded time-sharded over the
+    def _longform(self, max_frames: int, noise=None, flow_noise=None, **inputs):
+        """The acoustic step, then its mel vocoded time-sharded over the
         mesh (JAX ``interface.py:459-473``): eager, every rank alike.
-        Returns ``_e2e``'s outputs, the wave (1, 384 * mel_length) only."""
+        Returns ``_run_e2e``'s outputs, the wave (1, 384 * mel_length)."""
         from toucan_tpu_torch.dist.longform import synthesize_longform
 
-        if noise is None:
-            noise = self._noise(1, max_frames)
-        after, dur, pit, ene, lens = self._acoustic(max_frames=max_frames, noise=noise,
-                                                    **inputs)
+        draws = self._draws(1, inputs["text"].shape[1], max_frames, noise=noise,
+                            flow_noise=flow_noise)
+        _, after, dur, pit, ene, lens = acoustic_step(self.model, max_frames=max_frames,
+                                                      **draws, **inputs)
         wave = synthesize_longform(self._vocoder_call, after[0, :int(lens[0])], self.mesh)
         return torch.from_numpy(wave)[None], after, dur, pit, ene, lens
 
-    def _e2e_step(self):
-        """The step of an ``_e2e_cache`` bucket: the acoustic half where the
-        vocoder gives receptive frames, else text to wave fused."""
-        return self._e2e if self._reach is None else self._mel_step
-
     def _e2e_bucket(self, max_frames: int, inputs: dict, live: bool = True) -> Bucket:
-        """The bucket of these inputs (device tensors or None, named as
-        ``_e2e``'s arguments), made and, on the card, captured on first use.
+        """The acoustic step's bucket of these inputs (device tensors or
+        None, named as ``acoustic_step``'s arguments) and of the noise they
+        take (``_noise``), made and, on the card, captured on first use.
         Its key holds all that a graph fixes: batch size, phone bucket,
-        ``max_frames`` and which overrides were given.  A stochastic
-        model's bucket also takes the flows' noise, (3, B, phones, 2)."""
-        text = inputs["text"]
-        key = (text.shape[0], text.shape[1], max_frames,
+        ``max_frames`` and which overrides were given."""
+        b, phones = inputs["text"].shape[:2]
+        key = (b, phones, max_frames,
                *(inputs.get(k) is not None for k in ("durations", "pitch", "energy")))
         if key not in self._e2e_cache:
             specs = {k: None if v is None else (tuple(v.shape), v.dtype) for k, v in inputs.items()}
-            if self.stochastic:
-                specs["flow_noise"] = ((len(FLOWS), *text.shape[:2], 2), torch.float32)
-            specs["noise"] = ((text.shape[0], max_frames, self.config.mel_channels), torch.float32)
+            specs.update((k, (shape, torch.float32))
+                         for k, (shape, _) in self._noise(b, phones, max_frames).items())
             self._e2e_cache[key] = self._bucket(
-                functools.partial(self._e2e_step(), max_frames=max_frames), specs, live)
+                functools.partial(acoustic_step, self.model, max_frames=max_frames), specs, live)
         return self._e2e_cache[key]
 
     def _vocoder_bucket(self, rows: int, frames: int, live: bool = True) -> Bucket:
@@ -481,38 +507,27 @@ class ToucanTTSInterface:
         return wave[..., 0]
 
     def _run_e2e(self, max_frames: int, noise=None, flow_noise=None, **inputs):
-        """Text -> wave: the acoustic half through its bucket at
-        ``max_frames`` decoded frames, then, once the host has read the mel
-        lengths (the step's one wait for the device), the vocoder through
-        the bucket of its ``_cut_frames``; eagerly where ``_eager`` is set.
-        Where the vocoder gives no receptive frames, ``_e2e`` fused over
-        every decoded frame, without a wait.  ``inputs``: device tensors or
-        None; ``noise`` (and, for the stochastic model, ``flow_noise``) a
-        device tensor, or None to draw it from the generator into the
-        bucket's buffer, the flows' before the glow's.  Returns ``_e2e``'s
-        device outputs, the wave over the frames the vocoder ran."""
+        """Text -> wave: the acoustic step through its bucket at
+        ``max_frames`` decoded frames, then the vocoder through the bucket
+        of its ``_cut_frames``, once the host has read the mel lengths (the
+        step's one wait for the device; none where the vocoder gives no
+        receptive frames and runs every decoded frame); eagerly where
+        ``_eager`` is set.  ``inputs``: device tensors or None; ``noise``
+        and ``flow_noise`` (``_noise``): device tensors, or None to draw
+        them from the generator.  Returns (wave over the frames the vocoder
+        ran, after, durations, pitch, energy, mel_lengths) on the device."""
+        b, phones = inputs["text"].shape[:2]
+        draws = self._draws(b, phones, max_frames, self._eager, noise=noise,
+                            flow_noise=flow_noise)
         if self._eager:
-            b, phones = inputs["text"].shape[:2]
-            draws = {}
-            if self.stochastic:
-                draws["flow_noise"] = (self._flow_noise(b, phones) if flow_noise is None
-                                       else flow_noise)
-            draws["noise"] = self._noise(b, max_frames) if noise is None else noise
-            outs = self._e2e_step()(max_frames=max_frames, **draws, **inputs)
+            mel, *outs = acoustic_step(self.model, max_frames=max_frames, **draws, **inputs)
         else:
-            # the bucket fills its buffers in this order: the flows' draws first
-            draws = {}
-            if self.stochastic:
-                draws["flow_noise"] = self._draw_flow_noise if flow_noise is None else flow_noise
-            draws["noise"] = self._draw_noise if noise is None else noise
             given = {k: v for k, v in inputs.items() if v is not None}
-            outs = self._e2e_bucket(max_frames, inputs)(**draws, **given)
-        if self._reach is None:
-            self.counters["steps_uncut"] += 1
-            return outs
-        mel, *outs = outs
-        with span("toucan.fetch"):
-            frames = self._cut_frames(int(outs[-1].cpu().max()), max_frames)
+            mel, *outs = self._e2e_bucket(max_frames, inputs)(**draws, **given)
+        frames = max_frames
+        if self._reach is not None:
+            with span("toucan.fetch"):
+                frames = self._cut_frames(int(outs[-1].cpu().max()), max_frames)
         self.counters["steps_uncut"] += frames == max_frames
         return (self._run_vocoder(mel[:, :frames]), *outs)
 
@@ -528,23 +543,19 @@ class ToucanTTSInterface:
         captures left free in the interface's pool."""
         if with_overrides and self.stochastic:
             raise ValueError("a stochastic interface takes no given durations, pitch or energy")
-        if self._reach is not None:
-            cuts = {(b, self._cut_frames(length, n_pad * FRAMES_PER_PHONE))
-                    for b in batch_sizes for n_pad in phone_buckets
-                    for length in range(n_pad * FRAMES_PER_PHONE + 1)}
-            for b, frames in sorted(cuts, key=lambda bf: -bf[0] * bf[1]):
-                self._vocoder_bucket(b, frames, live=False)
-        feats = self.config.input_features
+        cuts = {(b, self._cut_frames(length, n_pad * FRAMES_PER_PHONE))
+                for b in batch_sizes for n_pad in phone_buckets
+                for length in range(n_pad * FRAMES_PER_PHONE + 1)}
+        for b, frames in sorted(cuts, key=lambda bf: -bf[0] * bf[1]):
+            self._vocoder_bucket(b, frames, live=False)
         for b, n_pad in sorted(itertools.product(batch_sizes, phone_buckets),
                                key=lambda bn: -bn[0] * bn[1]):
-            inputs = dict(text=self._tensor(np.zeros((b, n_pad, feats))),
-                          text_lengths=self._tensor(np.full(b, n_pad), torch.int64),
-                          utt=self._utt(b), lang=self._lang([self.lang_id] * b),
-                          knobs=None if self.stochastic else self._tensor(np.ones(4)))
+            given = {}
             if with_overrides:
-                inputs.update(durations=self._tensor(np.ones((b, n_pad)), torch.int32),
-                              pitch=self._tensor(np.zeros((b, n_pad, 1))),
-                              energy=self._tensor(np.zeros((b, n_pad, 1))))
+                given = dict(durations=[np.ones(n_pad)] * b, pitch=[np.zeros((n_pad, 1))] * b,
+                             energy=[np.zeros((n_pad, 1))] * b)
+            inputs, _ = self._stage([np.zeros((n_pad, self.config.input_features))] * b,
+                                    self._refuse_prosody((1.0,) * 4), **given)
             self._e2e_bucket(n_pad * FRAMES_PER_PHONE, inputs, live=False)
 
     @_under_policy
@@ -557,11 +568,6 @@ class ToucanTTSInterface:
         wave = self._run_vocoder(self._tensor(mel_p))
         return wave[0, :len(mel) * SAMPLES_PER_FRAME].cpu().numpy()
 
-    def _utt(self, b: int):
-        if self.default_utterance_embedding is None:
-            return None
-        return self._tensor(np.tile(self.default_utterance_embedding[None], (b, 1)))
-
     @_under_policy
     def _dispatch_call(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                        energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
@@ -569,58 +575,42 @@ class ToucanTTSInterface:
                        glow_noise=None, flow_noise=None, index=None):
         """Enqueue one sentence's text -> wave and return its device outputs
         (wave, after, durations, pitch, energy, mel_lengths) and its phone
-        count, having waited for its acoustic half only (``_run_e2e``), so
+        count, having waited for its acoustic step only (``_run_e2e``), so
         that a caller can enqueue several sentences before it fetches the
         first wave (``read_to_file``, which gives the sentence's ``index``
         to its span)."""
-        knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
-                 pause_duration_scaling_factor)
-        self._refuse_prosody(knobs, durations, pitch, energy)
+        knobs = self._refuse_prosody((duration_scaling_factor, pitch_variance_scale,
+                                      energy_variance_scale, pause_duration_scaling_factor),
+                                     durations, pitch, energy)
         if flow_noise is not None and not self.stochastic:
             raise ValueError("flow noise is the stochastic model's")
         with span("toucan.dispatch", index=index):
             with span("toucan.frontend"):
                 phones = self.text2phone.string_to_features(text, input_phonemes=input_is_phones)
             with span("toucan.stage"):
+                given = {k: [v] for k, v in dict(durations=durations, pitch=pitch,
+                                                 energy=energy).items() if v is not None}
+                inputs, n_pad = self._stage([phones], knobs, **given)
                 n = len(phones)
-                n_pad = _round_up(n, PHONE_BUCKET)
-                text_arr = np.zeros((1, n_pad, phones.shape[1]), np.float32)
-                text_arr[0, :n] = phones
                 if durations is not None:
                     max_frames = _round_up(int(np.sum(durations)
                                                * max(duration_scaling_factor, 1.0)) + 2, 64)
                 else:
                     max_frames = n_pad * FRAMES_PER_PHONE
-
-                def pad_override(x, dtype=torch.float32):
-                    if x is None:
-                        return None
-                    x = np.asarray(x, np.float32)
-                    out = np.zeros((1, n_pad) + x.shape[1:], np.float32)
-                    out[0, :n] = x
-                    return self._tensor(out, dtype)
-
                 noise = None
                 if glow_noise is not None:  # injected z (deterministic synthesis, parity tests)
                     glow_noise = np.asarray(glow_noise, np.float32)
                     z = np.zeros((1, max_frames, self.config.mel_channels), np.float32)
                     z[0, :len(glow_noise)] = glow_noise[:max_frames]
                     noise = self._tensor(z)
-                inputs = dict(text=self._tensor(text_arr),
-                              text_lengths=self._tensor([n], torch.int64), utt=self._utt(1),
-                              lang=self._lang([self.lang_id]),
-                              knobs=None if self.stochastic else self._tensor(knobs),
-                              durations=pad_override(durations, torch.int32),
-                              pitch=pad_override(pitch), energy=pad_override(energy))
-                if self.stochastic:
-                    # injected flow noise (3, n, 2): the draws of the sentence's phones
-                    inputs["flow_noise"] = None if flow_noise is None else self._tensor(
+                if flow_noise is not None:  # injected (3, n, 2): the draws of the sentence's phones
+                    flow_noise = self._tensor(
                         np.pad(np.asarray(flow_noise, np.float32)[:, None],
                                ((0, 0), (0, 0), (0, n_pad - n), (0, 0))))
             run = self._run_e2e
             if self.mesh is not None and max_frames >= self.longform_frames:
                 run = self._longform
-            outs = run(max_frames, noise, **inputs)
+            outs = run(max_frames, noise, flow_noise=flow_noise, **inputs)
         self.counters["sentences"] += 1
         self._count_run(outs[0])
         return outs, n
@@ -642,6 +632,21 @@ class ToucanTTSInterface:
         self.counters["frames_truncated"] += mel_len - decoded
         return decoded
 
+    def _fetch(self, waves, lens, decoded: int, whole: bool = False) -> list:
+        """Each row of a step's (B, samples) device ``waves`` cut at its mel
+        length (``lens``, clamped to the ``decoded`` frames by
+        ``_delivered``), on the host; counts the frames delivered.  Each
+        length is read, then its row copied cut; ``whole``: the waves and
+        lengths are copied whole, then cut on the host."""
+        if whole:
+            waves, lens = waves.cpu().numpy(), lens.cpu().numpy()
+        out = []
+        for wave, mel_len in zip(waves, lens):
+            mel_len = self._delivered(int(mel_len), decoded)
+            self.counters["frames_delivered"] += mel_len
+            out.append(wave[:mel_len * SAMPLES_PER_FRAME])
+        return out if whole else [wave.cpu().numpy() for wave in out]
+
     @_under_policy
     def __call__(self, text: str, duration_scaling_factor=1.0, pitch_variance_scale=1.0,
                  energy_variance_scale=1.0, pause_duration_scaling_factor=1.0,
@@ -659,15 +664,13 @@ class ToucanTTSInterface:
                 pause_duration_scaling_factor, durations, pitch, energy, input_is_phones,
                 glow_noise, flow_noise)
             with span("toucan.fetch"):
-                mel_len = self._delivered(int(lens[0]), after.shape[1])
-                wave = wave[0, :mel_len * SAMPLES_PER_FRAME].cpu().numpy()
+                wave, = self._fetch(wave, lens, after.shape[1])
                 if return_duration_pitch_energy:
                     out = (wave, dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy(),
                            ene[0, :n, 0].cpu().numpy())
                 elif return_plot_as_filepath:
-                    mel, dur, pit = (after[0, :mel_len].cpu().numpy(), dur[0, :n].cpu().numpy(),
-                                     pit[0, :n, 0].cpu().numpy())
-            self.counters["frames_delivered"] += mel_len
+                    mel = after[0, :len(wave) // SAMPLES_PER_FRAME].cpu().numpy()
+                    dur, pit = dur[0, :n].cpu().numpy(), pit[0, :n, 0].cpu().numpy()
             if return_duration_pitch_energy:
                 return out
             if return_plot_as_filepath:
@@ -732,8 +735,8 @@ class ToucanTTSInterface:
         waves, converted on the device (a quarter of the bytes to fetch)."""
         b = len(texts)
         langs = languages if languages is not None else [None] * b
-        self._refuse_prosody((duration_scaling_factor, pitch_variance_scale,
-                              energy_variance_scale, pause_duration_scaling_factor))
+        knobs = self._refuse_prosody((duration_scaling_factor, pitch_variance_scale,
+                                      energy_variance_scale, pause_duration_scaling_factor))
         with span("toucan.batch", self._request()):
             with span("toucan.frontend"):
                 frontends = [self.text2phone if lg is None else self._frontend(lg)
@@ -741,33 +744,16 @@ class ToucanTTSInterface:
                 phones = [fe.string_to_features(tx, input_phonemes=input_is_phones)
                           for fe, tx in zip(frontends, texts)]
             with span("toucan.stage"):
-                lengths = np.asarray([len(p) for p in phones], np.int64)
-                n_pad = _round_up(int(lengths.max()), PHONE_BUCKET)
-                text_arr = np.zeros((b, n_pad, phones[0].shape[1]), np.float32)
-                for i, p in enumerate(phones):
-                    text_arr[i, :len(p)] = p
-                max_frames = n_pad * FRAMES_PER_PHONE
-                if utterance_embeddings is None:
-                    utt = self._utt(b)
-                else:
-                    utt = self._tensor(np.asarray(utterance_embeddings, np.float32).reshape(b, -1))
-                knobs = (duration_scaling_factor, pitch_variance_scale, energy_variance_scale,
-                         pause_duration_scaling_factor)
-                inputs = dict(text=self._tensor(text_arr),
-                              text_lengths=self._tensor(lengths, torch.int64), utt=utt,
-                              lang=self._lang([self.lang_id if lg is None else language_id(lg)
-                                               for lg in langs]),
-                              knobs=None if self.stochastic else self._tensor(knobs))
-            waves, after, _, _, _, lens = self._run_e2e(max_frames, **inputs)
+                inputs, n_pad = self._stage(
+                    phones, knobs, utt=utterance_embeddings,
+                    lang_ids=[self.lang_id if lg is None else language_id(lg) for lg in langs])
+            waves, after, _, _, _, lens = self._run_e2e(n_pad * FRAMES_PER_PHONE, **inputs)
             self.counters["sentences"] += b
             self._count_run(waves)
             if return_pcm16:
                 waves = torch.round(waves.clamp(-1.0, 1.0) * 32767.0).to(torch.int16)
             with span("toucan.fetch"):
-                waves, lens = waves.cpu().numpy(), lens.cpu().numpy()
-            lens = [self._delivered(int(x), after.shape[1]) for x in lens]
-            self.counters["frames_delivered"] += sum(lens)
-            return [waves[i, :lens[i] * SAMPLES_PER_FRAME] for i in range(b)]
+                return self._fetch(waves, lens, after.shape[1], whole=True)
 
     # ----------------------------------------------------------- file I/O
 
@@ -802,9 +788,7 @@ class ToucanTTSInterface:
             pieces = [silence]
             for wave, lens, decoded in inflight:
                 with span("toucan.fetch"):
-                    mel_len = self._delivered(int(lens[0]), decoded)
-                    pieces += [wave[0, :mel_len * SAMPLES_PER_FRAME].cpu().numpy(), silence]
-                self.counters["frames_delivered"] += mel_len
+                    pieces += [*self._fetch(wave, lens, decoded), silence]
             with span("toucan.write"):
                 wav, sr = _compatible(np.concatenate(pieces), increased_compatibility_mode)
                 write_wav(file_location, wav, sr)

@@ -2,10 +2,11 @@
 (mel -> wave) stages over a stream of batches.
 
 Counterpart of ``toucan_tpu/infer/pipelined.py`` (one process, a list of
-devices, no process group).  ``make_stage_fns`` splits the interface's
-fused text -> wave step (``infer/interface.py::_e2e``) into its two halves,
-bit-identical to it: the acoustic stage runs K1 on the card, the vocoder
-stage K2 (or the vocoder's kernels).  ``PipelinedSynthesizer`` keeps up to
+devices, no process group).  ``make_stage_fns`` makes the two stages of
+the interface's text -> wave step over every decoded frame: the acoustic
+stage is the interface's acoustic step (``infer/interface.py::acoustic_step``,
+K1 on the card), the vocoder stage the vocoder over the whole mel (K2, or
+the vocoder's kernels).  ``PipelinedSynthesizer`` keeps up to
 ``depth`` batches in flight:
 
 * with two devices the acoustic model lives on the first and the vocoder
@@ -30,6 +31,7 @@ from collections import deque
 
 import torch
 
+from toucan_tpu_torch.infer.interface import acoustic_step
 from toucan_tpu_torch.utils.device import matmul_precision as precision_policy
 
 
@@ -40,17 +42,11 @@ def make_stage_fns(model, vocoder, max_frames: int, matmul_precision: str = "flo
     stage's module's device, ``knobs`` the (4,) duration, pitch variance,
     energy variance and pause scales."""
 
-    @torch.inference_mode()
     def acoustic(text, text_lengths, utt, lang, noise, knobs):
         with precision_policy(matmul_precision):
-            _, after, _, _, _, lens = model.infer(
-                text, text_lengths, max_frames, utterance_embedding=utt, lang_ids=lang,
-                duration_scaling_factor=knobs[0], pitch_variance_scale=knobs[1],
-                energy_variance_scale=knobs[2], pause_duration_scaling_factor=knobs[3],
-                glow_noise=noise)
-        after = after.float()
-        mask = (torch.arange(max_frames, device=after.device)[None, :] < lens[:, None])[..., None]
-        return torch.where(mask, after, torch.zeros((), device=after.device)), lens
+            mel, *_, lens = acoustic_step(model, text, text_lengths, max_frames, utt, lang,
+                                          noise, knobs)
+        return mel, lens
 
     @torch.inference_mode()
     def vocode(mel):
